@@ -1,0 +1,206 @@
+"""The port's CLI (``python -m tpu_cooccurrence_torch.cli --device cpu``)
+against the JAX package's CLI on the checked-in MovieLens fixture slices.
+
+The fixtures (``u.data``, ``ratings.csv``) go through the JAX package's
+dataset loader into the ``user,item,timestamp`` lines both CLIs read.
+
+- Against ``--backend device``: stdout must be byte-identical. Both sides
+  score in float32 with the same operation order and render 4 decimals;
+  ties order by the lowest column on both.
+- Against ``--backend oracle`` (float64): the comparator of
+  ``tests/test_pipeline.py`` (``assert_latest_close``): scores to
+  ``rtol=1e-4, atol=1e-3``, ids exact where every in-row gap exceeds
+  ``1e-2``; and the three cross-backend counters identical.
+
+Also pinned: a full port run loads neither ``jax`` nor any module of the
+JAX package; no file of the port (nor ``chip_smoke.py``) imports them;
+not-yet-ported flags exit 78; ``--device cuda`` without a card exits
+nonzero with a clear message.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_cooccurrence import cli as jax_cli
+from tpu_cooccurrence.config import Backend, Config as JaxConfig
+from tpu_cooccurrence.io.synthetic import movielens_interactions
+from tpu_cooccurrence.job import CooccurrenceJob as JaxJob
+from tpu_cooccurrence.metrics import (OBSERVED_COOCCURRENCES,
+                                      RESCORED_ITEMS, ROW_SUM_PROCESS_WINDOW)
+from tpu_cooccurrence_torch import cli as port_cli
+from tpu_cooccurrence_torch.config import Config as PortConfig
+from tpu_cooccurrence_torch.job import CooccurrenceJob as PortJob
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+PORT_DIR = os.path.join(REPO, "tpu_cooccurrence_torch")
+
+# (fixture, extra CLI args): whole-history windows, with and without
+# tight cuts (so the item cut, the reservoir and its feedback all engage).
+RUNS = [
+    ("u.data", ["-ws", "1000000000"]),
+    ("ratings.csv", ["-ws", "1000000000"]),
+    ("ratings.csv", ["-ws", "1", "-wu", "DAYS", "-ic", "4", "-uc", "3"]),
+    ("ratings.csv", ["-ws", "100000000000", "--count-dtype", "int16",
+                     "-k", "5"]),
+]
+
+
+def _fixture_csv(tmp_path, name):
+    (users, items, ts), = movielens_interactions(os.path.join(FIXTURES,
+                                                              name))
+    path = tmp_path / f"{name}.csv"
+    with open(path, "w") as f:
+        for u, i, t in zip(users.tolist(), items.tolist(), ts.tolist()):
+            f.write(f"{u},{i},{t}\n")
+    return str(path), (users, items, ts)
+
+
+def _run(capsys, main, argv):
+    capsys.readouterr()
+    rc = main(argv)
+    assert rc == 0
+    return capsys.readouterr().out
+
+
+def _parse(out):
+    """stdout rows -> {item: [(other, score), ...]}."""
+    rows = {}
+    for line in out.splitlines():
+        if not line:
+            continue
+        item, _, rest = line.partition("\t")
+        rows[int(item)] = [(int(o), float(s)) for o, s in
+                           (tok.split(":") for tok in rest.split())]
+    return rows
+
+
+def _assert_latest_close(a, b, rtol=1e-4, atol=1e-3, gap=1e-2):
+    """``tests/test_pipeline.py``'s f32-vs-f64 comparator."""
+    assert set(a) == set(b)
+    for item in a:
+        o, p = a[item], b[item]
+        assert len(o) == len(p), f"row {item}: {o} vs {p}"
+        o_scores = np.array([s for _, s in o])
+        np.testing.assert_allclose([s for _, s in p], o_scores, rtol=rtol,
+                                   atol=atol)
+        if len(o_scores) > 1 and np.min(np.abs(np.diff(o_scores))) > gap:
+            assert [j for j, _ in o][:-1] == [j for j, _ in p][:-1], item
+
+
+@pytest.mark.parametrize("fixture,args", RUNS)
+def test_cli_matches_jax_device_and_oracle(capsys, tmp_path, fixture, args):
+    path, _ = _fixture_csv(tmp_path, fixture)
+    base = ["-i", path, "-s", "0xC0FFEE", *args]
+    port = _run(capsys, port_cli.main, base + ["--device", "cpu"])
+    device = _run(capsys, jax_cli.main, base + ["--backend", "device"])
+    oracle = _run(capsys, jax_cli.main, base + ["--backend", "oracle"])
+    assert port.strip(), "the fixture produced no rows"
+    assert port == device
+    _assert_latest_close(_parse(oracle), _parse(port))
+
+
+@pytest.mark.parametrize("fixture", ["u.data", "ratings.csv"])
+@pytest.mark.parametrize("cuts", [(500, 500), (4, 3)])
+def test_cross_backend_counters_match_oracle(tmp_path, fixture, cuts):
+    _, (users, items, ts) = _fixture_csv(tmp_path, fixture)
+    kw = dict(window_size=86_400_000, seed=0xC0FFEE, item_cut=cuts[0],
+              user_cut=cuts[1])
+    port = PortJob(PortConfig(**kw, device="cpu"))
+    oracle = JaxJob(JaxConfig(**kw, backend=Backend.ORACLE))
+    for job in (port, oracle):
+        job.add_batch(users, items, ts)
+        job.finish()
+    assert port.counters.get(OBSERVED_COOCCURRENCES) > 0
+    for name in (OBSERVED_COOCCURRENCES, ROW_SUM_PROCESS_WINDOW,
+                 RESCORED_ITEMS):
+        assert port.counters.get(name) == oracle.counters.get(name), name
+
+
+def test_port_run_loads_no_jax(tmp_path):
+    """A full CLI run in a fresh interpreter leaves neither jax nor any
+    module of the JAX package in sys.modules."""
+    path, _ = _fixture_csv(tmp_path, "ratings.csv")
+    code = (
+        "import json, sys\n"
+        "from tpu_cooccurrence_torch import cli\n"
+        f"rc = cli.main(['-i', {path!r}, '-ws', '1000000000', "
+        "'-s', '0xC0FFEE', '--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpu_cooccurrence'))\n"
+        "print(json.dumps({'rc': rc, 'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) > 1, "the run printed no rows"
+    assert json.loads(lines[-1]) == {"rc": 0, "bad": []}
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT_DIR):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_sources_import_no_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "tpu_cooccurrence"), (
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports "
+                f"{name}")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--backend", "sparse"],
+    ["--backend", "oracle"],
+    ["--fused-window", "on"],
+    ["--pipeline-depth", "2"],
+    ["--checkpoint-dir", "ckpt"],
+    ["--serve-port", "8080"],
+    ["--metrics-port", "9090"],
+    ["--journal", "j.jsonl"],
+    ["--gang-workers", "2"],
+    ["--degrade"],
+    ["--autoscale", "on"],
+    ["--window-slide", "5"],
+    ["-k", "129"],
+])
+def test_not_yet_ported_flag_exits_78(caplog, tmp_path, flag):
+    path, _ = _fixture_csv(tmp_path, "u.data")
+    rc = port_cli.main(["-i", path, "-ws", "100", *flag])
+    assert rc == 78
+    msg = "\n".join(r.getMessage() for r in caplog.records)
+    assert "not yet ported" in msg
+    assert flag[0] in msg or "--top-k" in msg
+
+
+def test_cuda_without_a_card_exits_with_a_clear_error(caplog, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path, _ = _fixture_csv(tmp_path, "u.data")
+    rc = port_cli.main(["-i", path, "-ws", "100", "--device", "cuda"])
+    assert rc == port_cli.EX_UNAVAILABLE != 0
+    msg = "\n".join(r.getMessage() for r in caplog.records)
+    assert "no CUDA device" in msg and "--device cpu" in msg

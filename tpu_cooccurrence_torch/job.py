@@ -1,0 +1,169 @@
+"""The job: ingest -> windowing -> sampling -> dense device scoring.
+
+Port of ``tpu_cooccurrence/job.py`` on its serial device path. The host
+streams micro-batches through the window engine and the vectorized cut
+operators, and each fired window becomes one scorer step (scatter-update,
+then LLR + top-K on the card). The feedback edge (reject -> item-counter
+decrement) is a plain update applied between window fires.
+
+Duration and the accumulator dump mirror the reference's end-of-run
+logging (``FlinkCooccurrences.java:173-181``).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from typing import Iterable
+
+import numpy as np
+
+from .config import Config
+from .io.parse import InteractionBatch
+from .metrics import (Counters, FEEDBACK_QUEUES, ITEM_LATE_ELEMENTS,
+                      RESCORED_ITEMS, USER_LATE_ELEMENTS,
+                      USER_RECEIVED_ELEMENTS)
+from .observability import StepTimer, WindowStats, clock
+from .observability.registry import REGISTRY
+from .ops.device_scorer import DeviceScorer
+from .sampling.item_cut import ItemInteractionCut
+from .sampling.reservoir import UserReservoirSampler
+from .state.results import LatestResults, TopKBatch
+from .state.vocab import IdMap
+from .windowing.engine import WindowEngine
+
+LOG = logging.getLogger("tpu_cooccurrence_torch")
+
+
+class CooccurrenceJob:
+    """Streaming co-occurrence job over the dense device scorer."""
+
+    def __init__(self, config: Config, scorer=None) -> None:
+        if config.window_millis <= 0:
+            raise ValueError("window size must be positive")
+        self.config = config
+        self.counters = Counters()
+        self.engine = WindowEngine(config.window_millis)
+        self.item_vocab = IdMap()
+        self.user_vocab = IdMap()
+        self.item_cut = ItemInteractionCut(config.item_cut, capacity=1024)
+        self.sampler = UserReservoirSampler(
+            config.user_cut, config.seed, config.skip_cuts,
+            counters=self.counters)
+        # num_items == 0 derives the vocab from the data (the scorer
+        # doubles C on growth); an explicit value is a hard capacity.
+        # Without --emit-updates results stay in the device table until
+        # the final flush.
+        self.scorer = scorer if scorer is not None else DeviceScorer(
+            config.num_items, config.top_k, self.counters,
+            max_pairs_per_step=config.max_pairs_per_step,
+            count_dtype=config.count_dtype, device=config.device,
+            defer_results=not config.emit_updates)
+        # external item id -> [(external other, score) desc]
+        self.latest = LatestResults(self.item_vocab)
+        # Optional streaming hook, called with every absorbed window
+        # output (dense-id rows); None = final-state only.
+        self.on_update = None
+        self.emissions = 0
+        self.windows_fired = 0
+        self.duration_ms = 0
+        self.step_timer = StepTimer()
+        self._hist_sample = REGISTRY.histogram(
+            "cooc_window_sample_seconds",
+            help="host sampling stage seconds per fired window")
+        self._hist_score = REGISTRY.histogram(
+            "cooc_window_score_seconds",
+            help="scorer stage seconds per fired window")
+        # One in-process feedback channel (the reference counts one queue
+        # handshake per subtask open,
+        # UserInteractionCounterOneInputStreamOperator.java:109).
+        if not config.skip_cuts:
+            self.counters.add(FEEDBACK_QUEUES, 1)
+
+    def add_batch(self, users: np.ndarray, items: np.ndarray,
+                  ts: np.ndarray) -> None:
+        """Ingest one parsed interaction batch (stream order)."""
+        dense_items = self.item_vocab.map_batch(items)
+        if (self.config.num_items
+                and len(self.item_vocab) > self.config.num_items):
+            raise ValueError(
+                f"item vocabulary exceeded --num-items capacity "
+                f"({len(self.item_vocab)} > {self.config.num_items})")
+        dense_users = self.user_vocab.map_batch(users)
+        n_late = self.engine.add_batch(dense_users, dense_items, ts)
+        if n_late:
+            # The reference counts late drops at both cut operators.
+            self.counters.add(ITEM_LATE_ELEMENTS, n_late)
+            self.counters.add(USER_LATE_ELEMENTS, n_late)
+        if self.config.development_mode:
+            self.counters.add(USER_RECEIVED_ELEMENTS, len(users) - n_late)
+        self._drain(final=False)
+
+    def finish(self) -> None:
+        """End of stream: Watermark(MAX_VALUE) fires everything."""
+        self._drain(final=True)
+        if (self.config.development_mode
+                and not self.scorer.defer_results):
+            # Every row dispatched must be materialized exactly once (the
+            # reference's buffered-element balance counters). Deferred
+            # results are exempt: a row rescored in N windows drains once.
+            rescored = self.counters.get(RESCORED_ITEMS)
+            if self.emissions != rescored:
+                raise AssertionError(
+                    f"result pipeline out of balance: {rescored} rows "
+                    f"dispatched but {self.emissions} materialized")
+
+    def run(self, batches: Iterable[InteractionBatch]) -> LatestResults:
+        start = time.monotonic_ns()
+        for users, items, ts in batches:
+            self.add_batch(users, items, ts)
+        self.finish()
+        duration_ms = (time.monotonic_ns() - start) // 1_000_000
+        LOG.info("Duration\t%d", duration_ms)
+        LOG.info("Accumulator results: %s", self.counters)
+        LOG.info("Step timing: %s", self.step_timer.summary())
+        LOG.info("Stage occupancy: %s",
+                 self.step_timer.occupancy(duration_ms / 1000.0))
+        LOG.info("Slowest windows: %s",
+                 json.dumps(self.step_timer.slowest_as_dicts()))
+        LOG.info("Window stage seconds: %s", json.dumps(REGISTRY.summaries()))
+        self.duration_ms = duration_ms
+        return self.latest
+
+    def _drain(self, final: bool) -> None:
+        for ts, users, items in self.engine.fire_ready(final=final):
+            self.windows_fired += 1
+            with clock() as sample_clock:
+                if self.config.skip_cuts:
+                    sampled = np.ones(len(items), dtype=bool)
+                else:
+                    sampled = self.item_cut.fire(items)
+                pairs, feedback_items = self.sampler.fire(users, items,
+                                                          sampled)
+                # Feedback decrements before the next window fire
+                # (ItemInteractionCounterTwoInputStreamOperator.java:94-116).
+                if not self.config.skip_cuts and len(feedback_items):
+                    self.item_cut.apply_feedback(
+                        feedback_items, self.config.development_mode,
+                        self.counters)
+            with clock() as score_clock:
+                window_out = self.scorer.process_window(ts, pairs)
+            stats = WindowStats(
+                timestamp=ts, events=len(items), pairs=len(pairs),
+                rows_scored=self.scorer.last_dispatched_rows,
+                sample_seconds=sample_clock.seconds,
+                score_seconds=score_clock.seconds)
+            self.step_timer.record(stats)
+            self._hist_sample.observe(stats.sample_seconds)
+            self._hist_score.observe(stats.score_seconds)
+            self._absorb(window_out)
+        if final:
+            # The deferred device table holds the scored rows; drain it.
+            self._absorb(self.scorer.flush())
+
+    def _absorb(self, window_out: TopKBatch) -> None:
+        self.latest.absorb_batch(window_out)
+        self.emissions += len(window_out)
+        if self.on_update is not None and len(window_out):
+            self.on_update(window_out)

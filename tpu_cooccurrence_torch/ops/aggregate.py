@@ -1,0 +1,70 @@
+"""Host-side per-window COO aggregation (copy of
+``tpu_cooccurrence/ops/aggregate.py``, numpy fold only).
+
+The reference folds a window's pair deltas per (item, other) cell before
+they reach the rescorer (``ItemRowAggregator.java:26-31``); here the same
+fold also leaves the device scatter with one entry per distinct cell.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def aggregate_window_coo(src: np.ndarray, dst: np.ndarray,
+                         delta: np.ndarray):
+    """Fold duplicate ``(src, dst)`` pairs of one window into single entries.
+
+    Returns ``(src, dst, delta)`` sorted by ``(src, dst)`` with one entry
+    per distinct cell and the deltas summed as int64 (exact: the bincount
+    accumulates in float64, far above any window's total). Entries whose
+    deltas cancel to zero are kept — a zero scatter-add is a no-op, and
+    the reference also rescores rows for net-zero cells.
+    """
+    if not np.issubdtype(np.asarray(delta).dtype, np.integer):
+        raise TypeError(
+            f"aggregate_window_coo: delta dtype must be integer, got "
+            f"{np.asarray(delta).dtype}")
+    key = (src.astype(np.int64) << 32) | dst.astype(np.int64)
+    uniq_key, inverse = np.unique(key, return_inverse=True)
+    agg = np.bincount(inverse, weights=delta,
+                      minlength=len(uniq_key)).astype(np.int64)
+    return ((uniq_key >> 32).astype(np.int32),
+            (uniq_key & 0xFFFFFFFF).astype(np.int32),
+            agg)
+
+
+def narrow_deltas_int32(agg: np.ndarray) -> np.ndarray:
+    """Narrow exact int64 per-cell window deltas to the device's int32."""
+    if len(agg) and max(-int(agg.min()), int(agg.max())) >= 2**31:
+        raise ValueError("window cell delta exceeds int32 range")
+    return agg.astype(np.int32)
+
+
+def distinct_sorted(sorted_vals: np.ndarray) -> np.ndarray:
+    """Distinct values of an already-sorted array (no re-sort)."""
+    if len(sorted_vals) == 0:
+        return sorted_vals
+    return sorted_vals[np.flatnonzero(
+        np.diff(sorted_vals, prepend=sorted_vals[0] - 1))]
+
+
+def merge_sorted_insert(keys: np.ndarray, vals: np.ndarray,
+                        pos: np.ndarray, new_keys: np.ndarray,
+                        new_vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Insert sorted ``new_keys``/``new_vals`` into the sorted parallel
+    arrays ``keys``/``vals`` at searchsorted positions ``pos`` (one merge
+    pass; the vocab's sorted-id mode uses it)."""
+    n, m = len(keys), len(new_keys)
+    tgt = pos + np.arange(m)
+    keep = np.ones(n + m, dtype=bool)
+    keep[tgt] = False
+    out_k = np.empty(n + m, dtype=keys.dtype)
+    out_v = np.empty(n + m, dtype=vals.dtype)
+    out_k[tgt] = new_keys
+    out_k[keep] = keys
+    out_v[tgt] = new_vals
+    out_v[keep] = vals
+    return out_k, out_v
