@@ -7,22 +7,36 @@ fatal on failure:
 
 1. Card: name and power limit; build every kernel from ``csrc/`` (one
    ``nvcc`` per source, started together).
-2. Kernel vs plain on the card: ``score_topk`` (kernel) against
+2. Dense kernel vs plain on the card: ``score_topk`` (kernel) against
    ``score_topk_reference`` under ``topk_parity`` on edge cases and two
    full-width shapes, with times (CUDA events), bounds and the
    ``torch.topk`` selection-only yardstick. Also: the int16
    scatter-add (``index_put_`` with accumulate) wraps on the card as on
    the CPU.
-3. Path parity: a seeded Zipf stream through ``CooccurrenceJob`` on cuda
-   and on cpu, int32 and int16: counters, ``C``, row sums and
+3. Dense path parity: a seeded Zipf stream through ``CooccurrenceJob`` on
+   cuda and on cpu, int32 and int16: counters, ``C``, row sums and
    ``observed`` exactly equal, final rows in ``topk_parity``.
-4. Main path at full width: the bench workload (400k events, 20k items)
-   through ``CooccurrenceJob`` on cuda, with the kernel launch counter
-   reset just before and read just after; invariants checked; the kernel
-   then timed at the shapes that run gave it.
+4. Dense main path at full width: the bench workload (400k events, 20k
+   items) through ``CooccurrenceJob`` on cuda, with the kernel launch
+   counter reset just before and read just after; invariants checked;
+   the kernel then timed at the shapes that run gave it.
+5. Sparse kernel vs plain on the card: ``rect_topk`` against
+   ``rect_topk_reference`` on the edge cases (earliest-slot tie, rows
+   shorter than K, cancelled cells, a 100k-cell row, observed ~ 3e10,
+   partner ids above 2^24).
+6. Sparse path parity: a prefix of the config-4 stream through
+   ``CooccurrenceJob --backend sparse`` on cuda and on cpu, deferred and
+   streamed: counters and the canonical checkpoint exactly equal, rows
+   in the same order and in ``topk_parity``.
+7. Sparse main path at full size: the JAX package's config 4 (1M events,
+   1M-item vocabulary, 100k users, Zipf 1.1) through ``CooccurrenceJob
+   --backend sparse`` on cuda, the rect kernel's count reset just before
+   and read just after; invariants checked; the device's busy share from
+   a profiled second run; the kernel then timed at the shape of the
+   run's largest launch.
 
-The last lines: the card, a ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``.
+The last lines: the card, a ``{"kernels": [...]}`` JSON line naming both
+kernels and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -114,13 +128,19 @@ class Parity:
         self.cases = 0
 
     def check(self, name, C, rs, rows, observed, k):
-        from tpu_cooccurrence_torch.ops.score_topk import (score_topk,
-                                                           topk_parity)
+        """``score_topk`` against its plain version."""
+        from tpu_cooccurrence_torch.ops.score_topk import score_topk
 
-        kv, ki = score_topk(C, rs, rows, observed, k)
-        pv, pi = _reference_chunked(C, rs, rows, observed, k)
+        self.compare(name, score_topk(C, rs, rows, observed, k),
+                     _reference_chunked(C, rs, rows, observed, k))
+
+    def compare(self, name, kernel_out, plain_out):
+        """Kernel ``(vals, idx)`` against plain ``(vals, idx)``."""
         import torch
 
+        from tpu_cooccurrence_torch.ops.score_topk import topk_parity
+
+        (kv, ki), (pv, pi) = kernel_out, plain_out
         torch.cuda.synchronize()
         kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
         ok, mism = topk_parity(kv, ki, pv, pi, rtol=RTOL, atol=ATOL)
@@ -308,17 +328,17 @@ def phase_path_parity() -> None:
               f"cpu {t_cpu:.2f} s", flush=True)
 
 
-def _device_profile(users, items, ts, elapsed: float) -> None:
-    """The main path once more under ``torch.profiler``: device time by
-    kernel, and its share of the counted run's wall time (the device's
-    busy share; its launches are made after the counts were read)."""
+def _device_profile(run, elapsed: float) -> None:
+    """The main path once more (``run()``, returning its seconds) under
+    ``torch.profiler``: device time by kernel, and its share of the
+    counted run's wall time (the device's busy share; its launches are
+    made after the counts were read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, prof_elapsed = _run_job("cuda", "int32", users, items, ts,
-                                   num_items=20_000)
+        prof_elapsed = run()
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -375,7 +395,8 @@ def phase_main_path(parity: Parity, card: str) -> dict:
     print(f"  invariants hold; {len(snap)} rows, finite and descending",
           flush=True)
     print(f"  host stages: {job.step_timer.summary()}", flush=True)
-    _device_profile(users, items, ts, elapsed)
+    _device_profile(lambda: _run_job("cuda", "int32", users, items, ts,
+                                     num_items=20_000)[1], elapsed)
 
     # The kernel at the shape the main path gave it: the final C, one
     # full score chunk of touched rows.
@@ -385,6 +406,288 @@ def phase_main_path(parity: Parity, card: str) -> dict:
                  float(np.float32(obs)), sc.top_k)
     m = _measure(f"main_path_S{rows.shape[0]}_I{sc.num_items}_int32",
                  sc.C, sc.row_sums, rows, float(np.float32(obs)), sc.top_k)
+    return dict(launches=launches, **m)
+
+
+def _kernel_entry(name, replaces, parity: Parity, run: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"tpu_cooccurrence_torch/csrc/{name}.cu",
+        "replaces": f"tpu_cooccurrence/ops/{replaces}",
+        "launches": run["launches"],
+        "max_abs_err": parity.max_abs_err,
+        "ms": run["ms"],
+        "plain_ms": run["plain_ms"],
+        "bound_ms": run["bound_ms"],
+        "bound_by": run["bound_by"],
+        "library_ms": None,
+    }
+
+
+#: The JAX package's config 4 (``tpu_cooccurrence/bench/configs.py``,
+#: ``config4_zipfian_1m``): a 1M-item Zipfian stream, its job seed, window
+#: and cuts. Events, vocabulary, users, alpha, stream seed, events per ms.
+CONFIG4 = dict(n_events=1_000_000, n_items=1_000_000, n_users=100_000,
+               alpha=1.1, seed=4, events_per_ms=200)
+CONFIG4_JOB = dict(window_size=100, seed=4, item_cut=500, user_cut=500,
+                   top_k=10, backend="sparse")
+#: Events of the config-4 prefix that phase 6 runs on both devices.
+PARITY_PREFIX = 400_000
+
+
+def _config4_stream():
+    from tpu_cooccurrence_torch.io.synthetic import zipfian_interactions
+
+    return zipfian_interactions(**CONFIG4)
+
+
+def _run_sparse_job(device, users, items, ts, emit=False, sink=None):
+    from tpu_cooccurrence_torch.config import Config
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+
+    job = CooccurrenceJob(Config(**CONFIG4_JOB, device=device,
+                                 emit_updates=emit))
+    if sink is not None:
+        job.on_update = sink.append
+    start = time.monotonic()
+    job.add_batch(users, items, ts)
+    job.finish()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    return job, time.monotonic() - start
+
+
+def _rect_case(rng, n_rows, num_items, max_len, zero_frac=0.1, big=False,
+               short_rows=0, hot_len=0, id_base=0):
+    """Seeded slab rows for one rect-kernel case: random lens in
+    [0, max_len] (``short_rows`` under 4 cells, row 0 ``hot_len`` cells
+    when given), contiguous regions, counts with some cancelled (zero),
+    partner ids in [id_base, num_items). ``big``: counts and row sums of
+    the observed ~ 3e10 regime."""
+    lens = rng.integers(0, max_len + 1, n_rows)
+    lens[:short_rows] = rng.integers(1, 4, short_rows)
+    if hot_len:
+        lens[0] = hot_len
+    starts = 3 + np.concatenate([[0], np.cumsum(lens)[:-1]])
+    cap = int(starts[-1] + lens[-1] + 8)
+    cnt = rng.integers(1, 100_000 if big else 50, cap)
+    cnt[rng.random(cap) < zero_frac] = 0
+    dst = rng.integers(id_base, num_items, cap)
+    rows = rng.choice(num_items, n_rows, replace=False)
+    if big:
+        rs = rng.integers(500_000_000, 2_000_000_000, num_items)
+    else:
+        rs = rng.integers(1, 1 << 16, num_items)
+    return (cnt, dst, rs, rows, starts, lens), 3e10 if big else 1e7
+
+
+def _tie_case():
+    """Six cells with identical counts and partner sums: an exact tie,
+    which the earliest slots win, in slot order."""
+    cnt = np.zeros(256, dtype=np.int64)
+    cnt[:6] = 5
+    dst = np.zeros(256, dtype=np.int64)
+    dst[:6] = [40, 30, 20, 10, 50, 60]
+    rs = np.full(512, 1000)
+    return (cnt, dst, rs, [7], [0], [6]), 1e6
+
+
+def _cuda_int32(arrays):
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        "cuda") for a in arrays]
+
+
+def phase_rect_kernel(parity: Parity) -> None:
+    from tpu_cooccurrence_torch.ops.rect_topk import (rect_topk,
+                                                      rect_topk_reference)
+
+    print("phase 5: sparse kernel vs plain on the card", flush=True)
+    rng = np.random.default_rng(20261017)
+    big_ids = (1 << 24) + 4096
+    cases = [
+        ("tie_earliest_slot_K4", _tie_case(), 4),
+        ("S300_short_rows_K10", _rect_case(rng, 300, 4096, 12,
+                                           short_rows=100), 10),
+        ("S64_cancelled_cells_K128", _rect_case(rng, 64, 4096, 300,
+                                                zero_frac=0.5), 128),
+        ("S33_hot_row_100k_cells_K10", _rect_case(
+            rng, 33, 200_000, 3000, hot_len=100_000), 10),
+        ("S40_N3e10_K10", _rect_case(rng, 40, 4096, 500, big=True), 10),
+        ("S50_ids_above_2^24_K10", _rect_case(
+            rng, 50, big_ids, 400, id_base=1 << 24), 10),
+        ("S17_K1", _rect_case(rng, 17, 4096, 200), 1),
+    ]
+    for name, (arrays, observed), k in cases:
+        t = _cuda_int32(arrays)
+        got = rect_topk(*t, observed, k)
+        parity.compare(name, got, rect_topk_reference(*t, observed, k))
+        if name.startswith("tie") and got[1][0].tolist() != [40, 30, 20, 10]:
+            _fail(f"{name}: ids {got[1][0].tolist()} are not the earliest "
+                  f"slots' partners")
+        if "2^24" in name and not bool((got[1] >= 1 << 24).any()):
+            _fail(f"{name}: no partner id above 2^24 came out")
+
+
+def _topk_batches(batches):
+    batches = [b for b in batches if len(b)]
+    return (np.concatenate([b.rows for b in batches]),
+            np.concatenate([b.vals for b in batches]),
+            np.concatenate([b.idx for b in batches]))
+
+
+def phase_sparse_path_parity() -> None:
+    from tpu_cooccurrence_torch.ops import rect_topk as rt
+    from tpu_cooccurrence_torch.ops.score_topk import topk_parity
+
+    print(f"phase 6: sparse path parity, cuda vs cpu (config-4 prefix, "
+          f"{PARITY_PREFIX} events)", flush=True)
+    users, items, ts = (a[:PARITY_PREFIX] for a in _config4_stream())
+    for emit in (False, True):
+        mode = "emit-updates" if emit else "deferred"
+        outs = {"cuda": [], "cpu": []}
+        before = rt.LAUNCHES
+        gpu, t_gpu = _run_sparse_job("cuda", users, items, ts, emit,
+                                     outs["cuda"])
+        launches = rt.LAUNCHES - before
+        cpu, t_cpu = _run_sparse_job("cpu", users, items, ts, emit,
+                                     outs["cpu"])
+        if gpu.counters.as_dict() != cpu.counters.as_dict():
+            _fail(f"{mode}: counters differ {gpu.counters} vs "
+                  f"{cpu.counters}")
+        a, b = gpu.scorer.checkpoint_state(), cpu.scorer.checkpoint_state()
+        for key in a:
+            if not np.array_equal(a[key], b[key]):
+                _fail(f"{mode}: checkpoint {key} differs between cuda and "
+                      f"cpu")
+        # Rows in the order they were handed over (stdout's order under
+        # --emit-updates), scores in parity.
+        ra, va, ia = _topk_batches(outs["cuda"])
+        rb, vb, ib = _topk_batches(outs["cpu"])
+        ok, mism = topk_parity(va, ia, vb, ib, rtol=RTOL, atol=ATOL)
+        if not np.array_equal(ra, rb) or not ok or mism:
+            _fail(f"{mode}: rows differ (same order "
+                  f"{np.array_equal(ra, rb)}, scores_ok {ok}, untied id "
+                  f"mismatches {mism})")
+        if launches <= 0:
+            _fail(f"{mode}: the cuda run launched no rect kernel")
+        print(f"  {mode}: {gpu.windows_fired} windows, {len(ra)} rows "
+              f"handed over, {int(len(a['rows_key']))} live cells, "
+              f"{gpu.scorer.compactions} compactions; counters and "
+              f"checkpoint equal, rows in order and in parity; {launches} "
+              f"kernel launches; cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s",
+              flush=True)
+
+
+def _measure_rect(name, args):
+    """Kernel, plain and torch.topk-yardstick times for one ``rect_topk``
+    call (``args`` as the scorer passed them), plus the bound."""
+    import torch
+
+    from tpu_cooccurrence_torch.ops.rect_topk import (
+        PLAIN_LADDER, bucket_r, min_rect_width, rect_topk,
+        rect_topk_reference, score_buckets)
+    from tpu_cooccurrence_torch.sampling.reservoir import _ragged_arange
+
+    cnt, _dst, _rs, rows, starts, lens, _obs, k = args
+    ms = _time_ms(lambda: rect_topk(*args), 20)
+    plain_ms = _time_ms(lambda: rect_topk_reference(*args), 3)
+    # Yardstick for the selection alone: torch.topk over the plain
+    # version's [S_b, R_b] rectangles of random scores (never called by
+    # the port).
+    starts, lens = starts.cpu().numpy(), lens.cpu().numpy()
+    min_r = min_rect_width(k)
+    buckets, counts = np.unique(score_buckets(lens, min_r, PLAIN_LADDER)[0],
+                                return_counts=True)
+    rects = [torch.rand((int(c), bucket_r(int(b), min_r, PLAIN_LADDER)),
+                        device="cuda") for b, c in zip(buckets, counts)]
+    topk_ms = _time_ms(lambda: [torch.topk(r, k, dim=1) for r in rects], 20)
+    del rects
+    # Bound: each input byte once (cnt of every cell, dst and the partner
+    # row sum of every live cell, the row's meta and own sum) and the
+    # outputs once, against 8 f32 operations per live cell.
+    cells = np.repeat(starts.astype(np.int64), lens) + _ragged_arange(lens)
+    nnz = int((cnt.cpu().numpy()[cells] != 0).sum())
+    s = rows.shape[0]
+    nbytes = 4 * len(cells) + 8 * nnz + 16 * s + 8 * s * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nnz * OPS_PER_CELL / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    print(f"  time {name}: S={s} rows, {len(cells)} cells ({nnz} live, "
+          f"longest {int(lens.max())}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.topk yardstick {topk_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_sparse_main_path(parity: Parity, card: str) -> dict:
+    import torch
+
+    from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
+    from tpu_cooccurrence_torch.ops import rect_topk as rt
+    from tpu_cooccurrence_torch.state import sparse_scorer as ss
+
+    print("phase 7: sparse main path at full size (config 4, nothing cut)",
+          flush=True)
+    users, items, ts = _config4_stream()
+    # Keep the arguments of the run's largest launch (most rows): device
+    # copies, no sync, to time the kernel at exactly that shape afterwards.
+    largest = {"s": -1}
+    launch = ss.rect_topk
+
+    def recording(*args):
+        if args[3].shape[0] > largest["s"]:
+            largest.update(s=args[3].shape[0], args=tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+        return launch(*args)
+
+    ss.rect_topk = recording
+    try:
+        rt.LAUNCHES = 0
+        job, elapsed = _run_sparse_job("cuda", users, items, ts)
+        launches = rt.LAUNCHES
+    finally:
+        ss.rect_topk = launch
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    sc = job.scorer
+    print(f"  {card}: {elapsed:.3f} s, {pairs} pairs, "
+          f"{pairs / elapsed:.1f} pairs/s, {job.windows_fired} windows, "
+          f"{launches} kernel launches", flush=True)
+    if launches <= 0:
+        _fail("the sparse main path launched the rect_topk kernel no time")
+    print(f"  slab: {sc.slab_device_bytes} device bytes (capacity "
+          f"{sc.capacity} cells), {sc.live_cells} live cells, heap end "
+          f"{sc.heap_end}, {sc.compactions} compactions, item capacity "
+          f"{sc.items_cap}, host index {sc.index.nbytes} bytes", flush=True)
+    st = sc.checkpoint_state()
+    if int(sc.row_sums.sum(dtype=torch.int64)) != sc.observed:
+        _fail("row_sums.sum() != observed")
+    if int(st["rows_cnt"].sum()) != sc.observed or (st["rows_cnt"] < 0).any():
+        _fail("the slab's live cells do not sum to observed")
+    snap = job.latest.snapshot()
+    if len(snap) == 0:
+        _fail("no rows came out")
+    for item in snap:
+        scores = [s for _, s in snap[item]]
+        if (not np.all(np.isfinite(scores)) or len(scores) > 10
+                or scores != sorted(scores, reverse=True)):
+            _fail(f"row {item} malformed: {snap[item]}")
+    print(f"  invariants hold; {len(snap)} rows, finite and descending",
+          flush=True)
+    print(f"  host stages: {job.step_timer.summary()}", flush=True)
+    _device_profile(lambda: _run_sparse_job("cuda", users, items, ts)[1],
+                    elapsed)
+
+    args = largest["args"]
+    parity.compare("main_path_largest_launch", rt.rect_topk(*args),
+                   rt.rect_topk_reference(*args))
+    m = _measure_rect(f"main_path_largest_launch_S{largest['s']}", args)
     return dict(launches=launches, **m)
 
 
@@ -426,23 +729,20 @@ def main() -> int:
     phase_kernels(parity)
     phase_path_parity()
     main_run = phase_main_path(parity, card)
+    rect_parity = Parity()
+    phase_rect_kernel(rect_parity)
+    phase_sparse_path_parity()
+    sparse_run = phase_sparse_main_path(rect_parity, card)
 
-    print(f"kernel parity: {parity.cases} cases, max_abs_err "
-          f"{parity.max_abs_err:.3g}", flush=True)
+    for name, par in (("score_topk", parity), ("rect_topk", rect_parity)):
+        print(f"{name} parity: {par.cases} cases, max_abs_err "
+              f"{par.max_abs_err:.3g}", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "score_topk",
-        "route": "cuda",
-        "source": "tpu_cooccurrence_torch/csrc/score_topk.cu",
-        "replaces": "tpu_cooccurrence/ops/pallas_score.py:57",
-        "launches": main_run["launches"],
-        "max_abs_err": parity.max_abs_err,
-        "ms": main_run["ms"],
-        "plain_ms": main_run["plain_ms"],
-        "bound_ms": main_run["bound_ms"],
-        "bound_by": main_run["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        _kernel_entry("score_topk", "pallas_score.py:57", parity, main_run),
+        _kernel_entry("rect_topk", "pallas_score.py:214", rect_parity,
+                      sparse_run),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

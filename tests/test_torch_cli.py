@@ -7,6 +7,10 @@ dataset loader into the ``user,item,timestamp`` lines both CLIs read.
 - Against ``--backend device``: stdout must be byte-identical. Both sides
   score in float32 with the same operation order and render 4 decimals;
   ties order by the lowest column on both.
+- ``--backend sparse`` against the JAX package's ``--backend sparse``
+  (its default narrow cells and packed uplink are exact, so the int32 raw
+  port matches it): stdout byte-identical, with and without
+  ``--emit-updates``; ties order by the earliest slab slot on both.
 - Against ``--backend oracle`` (float64): the comparator of
   ``tests/test_pipeline.py`` (``assert_latest_close``): scores to
   ``rtol=1e-4, atol=1e-3``, ids exact where every in-row gap exceeds
@@ -131,8 +135,9 @@ def test_port_run_loads_no_jax(tmp_path):
     code = (
         "import json, sys\n"
         "from tpu_cooccurrence_torch import cli\n"
-        f"rc = cli.main(['-i', {path!r}, '-ws', '1000000000', "
-        "'-s', '0xC0FFEE', '--device', 'cpu'])\n"
+        f"argv = ['-i', {path!r}, '-ws', '1000000000', '-s', '0xC0FFEE', "
+        "'--device', 'cpu']\n"
+        "rc = cli.main(argv) or cli.main(argv + ['--backend', 'sparse'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_cooccurrence'))\n"
         "print(json.dumps({'rc': rc, 'bad': bad}))\n")
@@ -173,7 +178,7 @@ def test_port_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "sparse"],
+    ["--backend", "sharded"],
     ["--backend", "oracle"],
     ["--fused-window", "on"],
     ["--pipeline-depth", "2"],
@@ -186,6 +191,11 @@ def test_port_sources_import_no_jax(path):
     ["--autoscale", "on"],
     ["--window-slide", "5"],
     ["-k", "129"],
+    ["--cell-dtype", "int16", "--backend", "sparse"],
+    ["--wire-format", "packed", "--backend", "sparse"],
+    ["--fixed-score", "on", "--backend", "sparse"],
+    ["--spill-threshold-windows", "3", "--backend", "sparse"],
+    ["--fused-window", "on", "--backend", "sparse"],
 ])
 def test_not_yet_ported_flag_exits_78(caplog, tmp_path, flag):
     path, _ = _fixture_csv(tmp_path, "u.data")
@@ -204,3 +214,89 @@ def test_cuda_without_a_card_exits_with_a_clear_error(caplog, tmp_path,
     assert rc == port_cli.EX_UNAVAILABLE != 0
     msg = "\n".join(r.getMessage() for r in caplog.records)
     assert "no CUDA device" in msg and "--device cpu" in msg
+
+
+SPARSE_RUNS = [
+    ("u.data", ["-ws", "1000000000"]),
+    ("ratings.csv", ["-ws", "1000000000"]),
+    ("ratings.csv", ["-ws", "1", "-wu", "DAYS", "-ic", "4", "-uc", "3"]),
+]
+
+
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("fixture,args", SPARSE_RUNS)
+def test_cli_sparse_matches_jax_sparse_and_oracle(capsys, tmp_path, fixture,
+                                                  args, emit):
+    path, _ = _fixture_csv(tmp_path, fixture)
+    base = ["-i", path, "-s", "0xC0FFEE", *args]
+    base += ["--emit-updates"] if emit else []
+    port = _run(capsys, port_cli.main,
+                base + ["--backend", "sparse", "--device", "cpu"])
+    jax_sparse = _run(capsys, jax_cli.main, base + ["--backend", "sparse"])
+    assert port.strip(), "the fixture produced no rows"
+    assert port == jax_sparse
+    if not emit:
+        oracle = _run(capsys, jax_cli.main, base + ["--backend", "oracle"])
+        _assert_latest_close(_parse(oracle), _parse(port))
+
+
+@pytest.mark.parametrize("fixture", ["u.data", "ratings.csv"])
+@pytest.mark.parametrize("cuts", [(500, 500), (4, 3)])
+def test_sparse_counters_match_oracle(tmp_path, fixture, cuts):
+    _, (users, items, ts) = _fixture_csv(tmp_path, fixture)
+    kw = dict(window_size=86_400_000, seed=0xC0FFEE, item_cut=cuts[0],
+              user_cut=cuts[1])
+    port = PortJob(PortConfig(**kw, backend="sparse", device="cpu"))
+    oracle = JaxJob(JaxConfig(**kw, backend=Backend.ORACLE))
+    for job in (port, oracle):
+        job.add_batch(users, items, ts)
+        job.finish()
+    assert port.counters.get(OBSERVED_COOCCURRENCES) > 0
+    for name in (OBSERVED_COOCCURRENCES, ROW_SUM_PROCESS_WINDOW,
+                 RESCORED_ITEMS):
+        assert port.counters.get(name) == oracle.counters.get(name), name
+
+
+def test_hybrid_is_the_sparse_backend(capsys, caplog, tmp_path):
+    path, _ = _fixture_csv(tmp_path, "ratings.csv")
+    base = ["-i", path, "-ws", "1000000000", "-s", "0xC0FFEE",
+            "--device", "cpu", "--backend"]
+    sparse = _run(capsys, port_cli.main, base + ["sparse"])
+    assert "hybrid is retired" not in caplog.text
+    hybrid = _run(capsys, port_cli.main, base + ["hybrid"])
+    assert hybrid == sparse and sparse.strip()
+    assert "--backend hybrid is retired; running the sparse backend" in (
+        caplog.text)
+
+
+def test_sparse_config_echo_names_the_resolved_cell_dtype(caplog, tmp_path):
+    path, _ = _fixture_csv(tmp_path, "u.data")
+    caplog.set_level("INFO", logger="tpu_cooccurrence_torch")
+    assert port_cli.main(["-i", path, "-ws", "1000000000", "--backend",
+                          "sparse", "--device", "cpu",
+                          "--score-ladder", "16"]) == 0
+    assert "cellDtype\tint32 (--cell-dtype auto; auto is int32" in (
+        caplog.text)
+    assert "wireFormat\traw" in caplog.text
+    assert "scoreLadder\t16" in caplog.text
+
+
+def test_bad_score_ladder_is_a_config_error(caplog, tmp_path):
+    path, _ = _fixture_csv(tmp_path, "u.data")
+    assert port_cli.main(["-i", path, "-ws", "100", "--backend", "sparse",
+                          "--device", "cpu", "--score-ladder", "6"]) == 78
+    assert "power of two" in caplog.text
+
+
+def test_slab_capacity_error_exits_78(caplog, tmp_path, monkeypatch):
+    from tpu_cooccurrence_torch.state import sparse_scorer
+
+    def full(self, ts, pairs):
+        raise sparse_scorer.SlabCapacityError("slot space crossed")
+
+    monkeypatch.setattr(sparse_scorer.SparseDeviceScorer, "process_window",
+                        full)
+    path, _ = _fixture_csv(tmp_path, "ratings.csv")
+    assert port_cli.main(["-i", path, "-ws", "1000000000", "--backend",
+                          "sparse", "--device", "cpu"]) == port_cli.EX_CONFIG
+    assert "slab capacity exhausted: slot space crossed" in caplog.text

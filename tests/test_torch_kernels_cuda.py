@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_cooccurrence_torch.ops import rect_topk as rt
 from tpu_cooccurrence_torch.ops import score_topk as st
 from tpu_cooccurrence_torch.ops.device_scorer import DeviceScorer
 from tpu_cooccurrence_torch.sampling.reservoir import PairDeltaBatch
+from tpu_cooccurrence_torch.state.sparse_scorer import SparseDeviceScorer
 
 RTOL = ATOL = 1e-5
 
@@ -101,6 +103,67 @@ def test_device_scorer_on_card_matches_cpu(card, count_dtype):
     assert st.LAUNCHES - before == 3
     a, b = on_card.checkpoint_state(), on_cpu.checkpoint_state()
     for key in ("C", "row_sums", "observed"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    x, y = on_card.flush(), on_cpu.flush()
+    np.testing.assert_array_equal(x.rows, y.rows)
+    ok, mism = st.topk_parity(x.vals, x.idx, y.vals, y.idx, rtol=RTOL,
+                              atol=ATOL)
+    assert ok and mism == 0, (ok, mism)
+
+
+def _slab(seed, n_rows, num_items, max_len, zero_frac=0.1):
+    """Seeded slab rows: random lens in [0, max_len], contiguous regions,
+    random counts (some zero) and partner ids."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, n_rows).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    cap = int(lens.sum()) + 4
+    cnt = rng.integers(1, 50, cap).astype(np.int32)
+    cnt[rng.random(cap) < zero_frac] = 0
+    dst = rng.integers(0, num_items, cap).astype(np.int32)
+    rows = rng.choice(num_items, n_rows, replace=False).astype(np.int32)
+    rs = rng.integers(1, 1 << 16, num_items).astype(np.int32)
+    return cnt, dst, rs, rows, starts, lens, 1e7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_rows,max_len,k", [
+    (10, 300, 12, 10),       # most rows shorter than K
+    (11, 40, 5000, 10),      # rows across several 2048-cell tiles
+    (12, 64, 300, 128),
+    (13, 9, 100, 1),
+])
+def test_rect_kernel_matches_plain_on_card(card, seed, n_rows, max_len, k):
+    *arrays, observed = _slab(seed, n_rows, 4096, max_len)
+    dev = [torch.from_numpy(a).to(card) for a in arrays]
+    before = rt.LAUNCHES
+    got = rt.rect_topk(*dev, observed, k)
+    assert rt.LAUNCHES == before + 1
+    want = rt.rect_topk_reference(*dev, observed, k)
+    torch.cuda.synchronize()
+    _assert_parity(got, want)
+
+
+@pytest.mark.cuda
+def test_sparse_scorer_on_card_matches_cpu(card):
+    """The sparse scorer on the card keeps the same canonical state as on
+    the CPU and launches the rect kernel once per window."""
+    rng = np.random.default_rng(6)
+    on_card = SparseDeviceScorer(10, device=card, defer_results=True,
+                                 capacity=1024, compact_min_heap=256)
+    on_cpu = SparseDeviceScorer(10, device="cpu", defer_results=True,
+                                capacity=1024, compact_min_heap=256)
+    before = rt.LAUNCHES
+    for _ in range(4):
+        src = (rng.pareto(1.1, 3000) * 5).astype(np.int64) % 400
+        dst = rng.integers(0, 400, 3000)
+        delta = np.ones(3000, dtype=np.int32)
+        for sc in (on_card, on_cpu):
+            sc.process_window(0, PairDeltaBatch(src.copy(), dst.copy(),
+                                                delta.copy()))
+    assert rt.LAUNCHES - before == 4
+    a, b = on_card.checkpoint_state(), on_cpu.checkpoint_state()
+    for key in a:
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     x, y = on_card.flush(), on_cpu.flush()
     np.testing.assert_array_equal(x.rows, y.rows)

@@ -19,6 +19,7 @@ from .device import DeviceUnavailable
 from .io.parse import batched_lines
 from .io.source import FileMonitorSource
 from .job import CooccurrenceJob
+from .state.sparse_scorer import SlabCapacityError
 
 LOG = logging.getLogger("tpu_cooccurrence_torch")
 
@@ -66,8 +67,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # batch; it only matters when tailing input continuously.
     latency = (config.buffer_timeout / 1000.0
                if config.process_continuously else None)
-    job.run(batched_lines(source.lines(), max_latency_s=latency,
-                          origin=source.origin))
+    try:
+        job.run(batched_lines(source.lines(), max_latency_s=latency,
+                              origin=source.origin))
+    except SlabCapacityError as exc:
+        # Permanent: the stream outgrew the int32 cell-slot space of one
+        # slab; no retry helps.
+        LOG.error("slab capacity exhausted: %s", exc)
+        return EX_CONFIG
     if config.development_mode:
         for w in job.step_timer.slowest():
             LOG.info("slow window ts=%d events=%d pairs=%d rows=%d "

@@ -3,11 +3,14 @@
 The port parses every flag name of the reference package's CLI, with the
 same defaults, so an existing command line carries over. The flags whose
 feature is ported hold fields of :class:`Config`; every other flag is
-still parsed, and a value other than its default raises
-:class:`NotPorted` (the CLI exits 78, ``EX_CONFIG``) naming the flag:
-nothing is silently ignored.
+still parsed, and a value the port does not carry (anything but its
+default, or a value of :data:`_PORTED_VALUES`) raises :class:`NotPorted`
+(the CLI exits 78, ``EX_CONFIG``) naming the flag: nothing is silently
+ignored.
 
-The port adds ``--device cuda|cpu`` (default ``cuda``).
+Two backends are ported: ``device`` (the dense ``C``) and ``sparse`` (the
+slab; ``hybrid`` is its retired alias). The port adds ``--device
+cuda|cpu`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import time
 from typing import Optional, Sequence
 
 from . import tuning
+from .ops.rect_topk import ladder_bits
 from .ops.score_topk import MAX_TOP_K
+from .state.wire import resolve_cell_dtype, resolve_wire_format
 
 
 class NotPorted(ValueError):
@@ -57,7 +62,7 @@ def _parse_seed(value: str) -> int:
 
 @dataclasses.dataclass
 class Config:
-    """Configuration of a co-occurrence run on the dense device path."""
+    """Configuration of a co-occurrence run on a ported backend."""
 
     input: Optional[str] = None
     skip_cuts: bool = False
@@ -76,6 +81,10 @@ class Config:
     emit_updates: bool = False
     process_continuously: bool = False
     device: str = "cuda"  # the card unless the caller asks for the CPU
+    backend: str = "device"  # device | sparse | hybrid (alias of sparse)
+    score_ladder: Optional[int] = None  # sparse bucket ladder; None = 4
+    cell_dtype: str = "auto"  # sparse slab cells; auto = int32 here
+    wire_format: str = "auto"  # sparse uplink; auto = raw here
 
     def __post_init__(self):
         if self.seed is None:
@@ -88,11 +97,25 @@ class Config:
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu, got "
                              f"{self.device!r}")
+        for flag, value in (("--backend", self.backend),
+                            ("--cell-dtype", self.cell_dtype),
+                            ("--wire-format", self.wire_format)):
+            dest = flag.lstrip("-").replace("-", "_")
+            if value not in _PORTED_VALUES[dest]:
+                raise NotPorted(f"{flag}={value} is not yet ported to "
+                                f"tpu_cooccurrence_torch")
+        if self.score_ladder is not None:
+            ladder_bits(self.score_ladder)
         if self.device == "cuda" and self.top_k > MAX_TOP_K:
             raise NotPorted(
                 f"--top-k {self.top_k} > {MAX_TOP_K} is not yet ported to "
                 f"the CUDA kernel (run with --device cpu, or K <= "
                 f"{MAX_TOP_K})")
+
+    @property
+    def sparse(self) -> bool:
+        """The sparse slab backend (``hybrid`` is its retired alias)."""
+        return self.backend in ("sparse", "hybrid")
 
     @property
     def window_millis(self) -> int:
@@ -109,7 +132,15 @@ class Config:
         logger.info("windowUnit\t%s", self.window_unit.name)
         logger.info("seed\t%s", self.seed)
         logger.info("buffer timeout\t%s", self.buffer_timeout)
-        logger.info("backend\tdevice")
+        logger.info("backend\t%s", self.backend)
+        if self.sparse:
+            logger.info("cellDtype\t%s (--cell-dtype %s; auto is int32 in "
+                        "the port)", resolve_cell_dtype(self.cell_dtype),
+                        self.cell_dtype)
+            logger.info("wireFormat\t%s",
+                        resolve_wire_format(self.wire_format))
+            logger.info("scoreLadder\t%s", self.score_ladder
+                        or tuning.default("score_ladder"))
         logger.info("numItems\t%s", self.num_items)
         logger.info("device\t%s", self.device)
 
@@ -168,8 +199,17 @@ class Config:
                        help="Where C, the row sums and the scoring run "
                             "(default: cuda; cpu runs the plain PyTorch "
                             "versions of the kernels)")
+        p.add_argument("--score-ladder", type=int, default=None,
+                       dest="score_ladder",
+                       help="Sparse score-bucket ladder base (power of two "
+                            ">= 2; default 4): the plain version's "
+                            "rectangle widths and the order rows are "
+                            "emitted in")
         for flags, kw in _NOT_PORTED_FLAGS:
-            p.add_argument(*flags, help="not yet ported", **kw)
+            ported = _PORTED_VALUES.get(kw["dest"])
+            p.add_argument(*flags, **kw, help=(
+                "not yet ported" if ported is None else
+                "ported values: " + ", ".join(ported)))
         raw = list(argv) if argv is not None else sys.argv[1:]
         if any(a == "--sample-workers" or a.startswith("--sample-workers=")
                for a in raw):
@@ -177,10 +217,14 @@ class Config:
                 "--sample-workers is retired: use --partition-sampling for "
                 "multi-process ingest scale-out")
         ns = vars(p.parse_args(argv))
+        fields = {f.name for f in dataclasses.fields(cls)}
         for flags, kw in _NOT_PORTED_FLAGS:
             dest = kw["dest"]
             value = ns.pop(dest)
-            if value not in _PORTED_VALUES.get(dest, (kw.get("default"),)):
+            if dest in fields:
+                ns[dest] = value  # Config.__post_init__ checks it
+            elif value not in _PORTED_VALUES.get(dest,
+                                                 (kw.get("default"),)):
                 raise NotPorted(f"{flags[0]}={value} is not yet ported to "
                                 f"tpu_cooccurrence_torch")
         return cls(**ns)
@@ -197,7 +241,8 @@ _INT0 = dict(type=int, default=0)
 _FLAG = dict(action="store_true", default=False)
 
 #: Every flag of the reference package's CLI whose feature the port does
-#: not carry yet, with the reference's type and default.
+#: not carry yet, in full or in part, with the reference's type and
+#: default.
 _NOT_PORTED_FLAGS = (
     _flag("--source-format", choices=("files", "partitioned"),
           default="files"),
@@ -222,7 +267,6 @@ _NOT_PORTED_FLAGS = (
     _flag("--spill-target-hbm-frac", type=float, default=0.5),
     _flag("--wire-format", choices=("auto", "raw", "packed"),
           default="auto"),
-    _flag("--score-ladder", type=int, default=None),
     _flag("--fixed-score", choices=("auto", "on", "off"), default="auto"),
     _flag("--pipeline-depth", type=int, choices=(0, 1, 2),
           default=tuning.default("pipeline_depth")),
@@ -269,11 +313,18 @@ _NOT_PORTED_FLAGS = (
     _flag("--run-id", **_STR),
 )
 
-#: Values of not-ported flags that the port's behaviour already matches
-#: (their default otherwise): the kernel always runs on the card
-#: (``--pallas on``), and ``--fused-window auto`` resolves off off-TPU in
-#: the reference package too.
+#: Values of those flags that the port carries (their default otherwise);
+#: a flag that names a :class:`Config` field keeps its value there. The
+#: kernels always run on the card (``--pallas on``); ``--fused-window
+#: auto`` resolves off off-TPU in the reference package too; the sparse
+#: slab holds int32 cells, takes the raw uplink and scores variable
+#: shapes (eager PyTorch compiles nothing per shape, so ``--fixed-score``
+#: has nothing to fix).
 _PORTED_VALUES = {
+    "backend": ("device", "sparse", "hybrid"),
     "pallas": ("auto", "on"),
     "fused_window": ("auto", "off"),
+    "cell_dtype": ("auto", "int32"),
+    "wire_format": ("auto", "raw"),
+    "fixed_score": ("auto", "off"),
 }

@@ -1,10 +1,12 @@
-"""The job: ingest -> windowing -> sampling -> dense device scoring.
+"""The job: ingest -> windowing -> sampling -> device scoring.
 
-Port of ``tpu_cooccurrence/job.py`` on its serial device path. The host
-streams micro-batches through the window engine and the vectorized cut
-operators, and each fired window becomes one scorer step (scatter-update,
-then LLR + top-K on the card). The feedback edge (reject -> item-counter
-decrement) is a plain update applied between window fires.
+Port of ``tpu_cooccurrence/job.py`` on its serial path, with the dense
+(``--backend device``) and the sparse slab (``--backend sparse``) scorers.
+The host streams micro-batches through the window engine and the
+vectorized cut operators, and each fired window becomes one scorer step
+(scatter-update, then LLR + top-K on the card). The feedback edge
+(reject -> item-counter decrement) is a plain update applied between
+window fires.
 
 Duration and the accumulator dump mirror the reference's end-of-run
 logging (``FlinkCooccurrences.java:173-181``).
@@ -30,6 +32,7 @@ from .ops.device_scorer import DeviceScorer
 from .sampling.item_cut import ItemInteractionCut
 from .sampling.reservoir import UserReservoirSampler
 from .state.results import LatestResults, TopKBatch
+from .state.sparse_scorer import SparseDeviceScorer
 from .state.vocab import IdMap
 from .windowing.engine import WindowEngine
 
@@ -37,7 +40,7 @@ LOG = logging.getLogger("tpu_cooccurrence_torch")
 
 
 class CooccurrenceJob:
-    """Streaming co-occurrence job over the dense device scorer."""
+    """Streaming co-occurrence job over a device scorer."""
 
     def __init__(self, config: Config, scorer=None) -> None:
         if config.window_millis <= 0:
@@ -51,15 +54,7 @@ class CooccurrenceJob:
         self.sampler = UserReservoirSampler(
             config.user_cut, config.seed, config.skip_cuts,
             counters=self.counters)
-        # num_items == 0 derives the vocab from the data (the scorer
-        # doubles C on growth); an explicit value is a hard capacity.
-        # Without --emit-updates results stay in the device table until
-        # the final flush.
-        self.scorer = scorer if scorer is not None else DeviceScorer(
-            config.num_items, config.top_k, self.counters,
-            max_pairs_per_step=config.max_pairs_per_step,
-            count_dtype=config.count_dtype, device=config.device,
-            defer_results=not config.emit_updates)
+        self.scorer = scorer if scorer is not None else self._make_scorer()
         # external item id -> [(external other, score) desc]
         self.latest = LatestResults(self.item_vocab)
         # Optional streaming hook, called with every absorbed window
@@ -80,6 +75,27 @@ class CooccurrenceJob:
         # UserInteractionCounterOneInputStreamOperator.java:109).
         if not config.skip_cuts:
             self.counters.add(FEEDBACK_QUEUES, 1)
+
+    def _make_scorer(self):
+        """The configured backend's scorer. Without --emit-updates results
+        stay in a device table until the final flush."""
+        cfg = self.config
+        if cfg.backend == "hybrid":
+            LOG.warning("--backend hybrid is retired; running the sparse "
+                        "backend (checkpoints are interchangeable)")
+        if cfg.sparse:
+            # int32 cells: the only --cell-dtype the config lets through.
+            return SparseDeviceScorer(
+                cfg.top_k, self.counters, cfg.development_mode,
+                score_ladder=cfg.score_ladder,
+                defer_results=not cfg.emit_updates, device=cfg.device)
+        # num_items == 0 derives the vocab from the data (the scorer
+        # doubles C on growth); an explicit value is a hard capacity.
+        return DeviceScorer(
+            cfg.num_items, cfg.top_k, self.counters,
+            max_pairs_per_step=cfg.max_pairs_per_step,
+            count_dtype=cfg.count_dtype, device=cfg.device,
+            defer_results=not cfg.emit_updates)
 
     def add_batch(self, users: np.ndarray, items: np.ndarray,
                   ts: np.ndarray) -> None:

@@ -6,7 +6,8 @@ at first use, into ``build/kernels/`` beside the package (git-ignored).
 Libraries are keyed by a hash of their source and flags, so an edited
 source rebuilds and an unchanged one is reused. :func:`build_all` starts
 one ``nvcc`` per source at once; :func:`load` returns the ``ctypes``
-handle with its argument types declared.
+handle with its argument types declared. Headers (``csrc/*.cuh``) enter
+every library's hash, so an edited header rebuilds its users.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -33,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_longlong = ctypes.c_longlong
 
 #: Library name -> {C function: argtypes}. One entry per ``csrc/<name>.cu``.
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -43,6 +45,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                               _c_int, _c_int, _c_float, _c_int, _c_void_p,
                               _c_void_p, _c_void_p],
         "score_topk_error_string": [_c_int],
+    },
+    "rect_topk": {
+        # cnt, dst, row_sums, rows, starts, lens, num_rows, num_items,
+        # cap, observed, top_k, out_vals, out_idx, stream
+        "rect_topk_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                             _c_void_p, _c_void_p, _c_int, _c_int,
+                             _c_longlong, _c_float, _c_int, _c_void_p,
+                             _c_void_p, _c_void_p],
+        "rect_topk_error_string": [_c_int],
     },
 }
 
@@ -60,8 +71,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -14,12 +14,14 @@ import numpy as np
 
 
 def aggregate_window_coo(src: np.ndarray, dst: np.ndarray,
-                         delta: np.ndarray):
+                         delta: np.ndarray, return_key: bool = False):
     """Fold duplicate ``(src, dst)`` pairs of one window into single entries.
 
     Returns ``(src, dst, delta)`` sorted by ``(src, dst)`` with one entry
     per distinct cell and the deltas summed as int64 (exact: the bincount
-    accumulates in float64, far above any window's total). Entries whose
+    accumulates in float64, far above any window's total). With
+    ``return_key=True`` the packed ``src << 32 | dst`` int64 key array is
+    appended (same order), for callers that index by packed key. Entries whose
     deltas cancel to zero are kept — a zero scatter-add is a no-op, and
     the reference also rescores rows for net-zero cells.
     """
@@ -31,9 +33,9 @@ def aggregate_window_coo(src: np.ndarray, dst: np.ndarray,
     uniq_key, inverse = np.unique(key, return_inverse=True)
     agg = np.bincount(inverse, weights=delta,
                       minlength=len(uniq_key)).astype(np.int64)
-    return ((uniq_key >> 32).astype(np.int32),
-            (uniq_key & 0xFFFFFFFF).astype(np.int32),
-            agg)
+    out = ((uniq_key >> 32).astype(np.int32),
+           (uniq_key & 0xFFFFFFFF).astype(np.int32), agg)
+    return out + (uniq_key,) if return_key else out
 
 
 def narrow_deltas_int32(agg: np.ndarray) -> np.ndarray:

@@ -65,3 +65,14 @@ _register(TuningParameter(
     bounds=(1, None), unit="rows",
     doc="Cap on rows scored per kernel launch; the effective chunk also "
         "keeps the [S, I] plain-version working set near 1 GB."))
+_register(TuningParameter(
+    name="score_ladder", type="int", default=4, bounds=(2, None),
+    unit="x per bucket", flag="--score-ladder",
+    doc="Sparse score-bucket ladder base (power of two >= 2): the plain "
+        "version scores each bucket as one [S, R] rectangle, and the "
+        "bucket order is the order rows are emitted in."))
+_register(TuningParameter(
+    name="row_index", type="choice", default="bitmap",
+    choices=("bitmap", "dense"),
+    doc="Sparse row-registry layout: bitmap+rank directory "
+        "(production) or dense reference arrays (A/B baseline)."))
