@@ -34,9 +34,23 @@ fatal on failure:
    and read just after; invariants checked; the device's busy share from
    a profiled second run; the kernel then timed at the shape of the
    run's largest launch.
+8. Expand kernel vs plain on the card: ``apply_baskets`` (kernel) against
+   ``apply_baskets_reference`` on copies of the same ``C`` and row sums,
+   exactly equal, on append ops, replacement pairs, len 0 / len W /
+   skip >= len, 10,000 ops on one new item, int16 cells driven past the
+   short range, and ids near I - 1 at I = 61,440 int16 (cell offsets past
+   2^31); each case timed.
+9. Dense fused window: phase 4's bench workload with ``--fused-window
+   on`` on cuda, the expand and score counts reset just before and read
+   just after: every pair-carrying window fused, none chained; state,
+   counters and rows exactly equal to phase 4's chained run; the busy
+   share from a profiled second run. Then phase 3's stream with user cut
+   3 (replacement ops) fused on cuda against fused on cpu, int32 and
+   int16. Last, the run's largest expand launch replayed against the
+   plain version and timed beside its bound and the chained scatter.
 
-The last lines: the card, a ``{"kernels": [...]}`` JSON line naming both
-kernels and ``{"ok": true, "device": {...}}``.
+The last lines: the card, a ``{"kernels": [...]}`` JSON line naming all
+three kernels and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -265,12 +279,13 @@ def phase_kernels(parity: Parity) -> None:
         torch.cuda.empty_cache()
 
 
-def _run_job(device, count_dtype, users, items, ts, num_items=0):
+def _run_job(device, count_dtype, users, items, ts, num_items=0, **extra):
     from tpu_cooccurrence_torch.config import Config
     from tpu_cooccurrence_torch.job import CooccurrenceJob
 
-    cfg = Config(window_size=100, seed=0xC0FFEE, item_cut=500, user_cut=500,
-                 num_items=num_items, count_dtype=count_dtype, device=device)
+    cfg = Config(**{**dict(window_size=100, seed=0xC0FFEE, item_cut=500,
+                           user_cut=500, num_items=num_items,
+                           count_dtype=count_dtype, device=device), **extra})
     job = CooccurrenceJob(cfg)
     start = time.monotonic()
     job.add_batch(users, items, ts)
@@ -293,15 +308,28 @@ def _rows_table(job, k):
     return items, vals, ids
 
 
-def phase_path_parity() -> None:
+def _parity_stream():
+    """Phase 3's seeded Zipf stream (60k events, 5k items)."""
     from tpu_cooccurrence_torch.io.synthetic import zipfian_interactions
+
+    return zipfian_interactions(60_000, n_items=5_000, n_users=2_000,
+                                alpha=1.1, seed=3, events_per_ms=200)
+
+
+def _bench_stream():
+    """``bench.py``'s dense workload stream (400k events, 20k items)."""
+    from tpu_cooccurrence_torch.io.synthetic import zipfian_interactions
+
+    return zipfian_interactions(400_000, n_items=20_000, n_users=5_000,
+                                alpha=1.1, seed=3, events_per_ms=200)
+
+
+def phase_path_parity() -> None:
     from tpu_cooccurrence_torch.ops import score_topk as st
     from tpu_cooccurrence_torch.ops.score_topk import topk_parity
 
     print("phase 3: path parity, cuda vs cpu", flush=True)
-    users, items, ts = zipfian_interactions(
-        60_000, n_items=5_000, n_users=2_000, alpha=1.1, seed=3,
-        events_per_ms=200)
+    users, items, ts = _parity_stream()
     for dtype in ("int32", "int16"):
         before = st.LAUNCHES
         gpu, t_gpu = _run_job("cuda", dtype, users, items, ts)
@@ -360,14 +388,11 @@ def _device_profile(run, elapsed: float) -> None:
 def phase_main_path(parity: Parity, card: str) -> dict:
     import torch
 
-    from tpu_cooccurrence_torch.io.synthetic import zipfian_interactions
     from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
     from tpu_cooccurrence_torch.ops import score_topk as st
 
     print("phase 4: main path at full width (bench workload)", flush=True)
-    users, items, ts = zipfian_interactions(
-        400_000, n_items=20_000, n_users=5_000, alpha=1.1, seed=3,
-        events_per_ms=200)
+    users, items, ts = _bench_stream()
     st.LAUNCHES = 0
     job, elapsed = _run_job("cuda", "int32", users, items, ts,
                             num_items=20_000)
@@ -406,7 +431,7 @@ def phase_main_path(parity: Parity, card: str) -> dict:
                  float(np.float32(obs)), sc.top_k)
     m = _measure(f"main_path_S{rows.shape[0]}_I{sc.num_items}_int32",
                  sc.C, sc.row_sums, rows, float(np.float32(obs)), sc.top_k)
-    return dict(launches=launches, **m)
+    return dict(launches=launches, job=job, **m)
 
 
 def _kernel_entry(name, replaces, parity: Parity, run: dict) -> dict:
@@ -421,7 +446,7 @@ def _kernel_entry(name, replaces, parity: Parity, run: dict) -> dict:
         "plain_ms": run["plain_ms"],
         "bound_ms": run["bound_ms"],
         "bound_by": run["bound_by"],
-        "library_ms": None,
+        "library_ms": run.get("library_ms"),
     }
 
 
@@ -690,6 +715,365 @@ def phase_sparse_main_path(parity: Parity, card: str) -> dict:
     m = _measure_rect(f"main_path_largest_launch_S{largest['s']}", args)
     return dict(launches=launches, **m)
 
+class ExpandParity:
+    """Expand kernel vs plain: ``C`` and row sums must be exactly equal;
+    keeps the worst absolute difference (0 when they are)."""
+
+    def __init__(self) -> None:
+        self.max_abs_err = 0.0
+        self.cases = 0
+
+    def compare(self, name, C, rs, block, reps=20):
+        """``apply_baskets`` and ``apply_baskets_reference`` on two copies
+        of ``C``/``rs`` (the inputs stay as they are); the kernel then
+        timed on the plain version's copy. Returns the kernel's results."""
+        import torch
+
+        from tpu_cooccurrence_torch.ops.expand import (
+            apply_baskets, apply_baskets_reference)
+
+        kc, krs = C.clone(), rs.clone()
+        apply_baskets(kc, krs, block)
+        pc, prs = C.clone(), rs.clone()
+        apply_baskets_reference(pc, prs, block)
+        torch.cuda.synchronize()
+        if not (torch.equal(kc, pc) and torch.equal(krs, prs)):
+            self.max_abs_err = max(self.max_abs_err, float(
+                (krs.long() - prs.long()).abs().max()))
+            _fail(f"{name}: expand kernel and plain differ: "
+                  f"{int((kc != pc).sum())} C cells, "
+                  f"{int((krs != prs).sum())} row sums")
+        ms = _time_ms(lambda: apply_baskets(pc, prs, block), reps)
+        del pc, prs
+        self.cases += 1
+        print(f"  parity {name}: C and row sums exactly equal; kernel "
+              f"{ms:.4f} ms", flush=True)
+        return kc, krs
+
+
+def _basket_block(rng, n, w, num_items, id_base=0, replacements=False,
+                  hot_new=None, edges=False):
+    """A packed ``[n, W + 4]`` block of seeded star ops on the card:
+    partner ids in [id_base, num_items), garbage past each op's len.
+    ``replacements``: ops in (+1, -1) pairs of full width with the same
+    skip slot; ``edges``: len 0, len W and skip >= len ops among random
+    lens; ``hot_new``: every op on that one new item."""
+    import torch
+
+    from tpu_cooccurrence_torch.ops.expand import pack_block
+
+    lens = np.full(n, w)
+    skips = np.full(n, -1)
+    signs = np.ones(n)
+    if replacements:
+        skips = np.repeat(rng.integers(0, w, n // 2), 2)
+        signs = np.tile([1, -1], n // 2)
+    elif edges:
+        lens = rng.integers(0, w + 1, n)
+        lens[::7], lens[1::7] = 0, w
+        skips = np.where(rng.random(n) < 0.5, rng.integers(0, w + 3, n), -1)
+        signs = np.where(rng.random(n) < 0.7, 1, -1)
+    j = np.arange(w)[None, :]
+    baskets = np.where(j < lens[:, None],
+                       rng.integers(id_base, num_items, (n, w)),
+                       rng.integers(-2**31, 2**31 - 1, (n, w)))
+    new = (np.full(n, hot_new) if hot_new is not None
+           else rng.integers(id_base, num_items, n))
+    block = pack_block(*(np.asarray(a).astype(np.int32) for a in
+                         (new, baskets, lens, skips, signs)))
+    return torch.from_numpy(block).to("cuda")
+
+
+def phase_expand_kernel(parity: ExpandParity) -> None:
+    import torch
+
+    print("phase 8: expand kernel vs plain on the card", flush=True)
+    rng = np.random.default_rng(20261018)
+    dev = torch.device("cuda")
+
+    def state(n, dtype):
+        c = torch.from_numpy(rng.integers(-1000, 1000, (n, n))).to(dtype)
+        rs = rng.integers(0, 1 << 24, n).astype(np.int32)
+        return c.to(dev), torch.from_numpy(rs).to(dev)
+
+    parity.compare("append_ops_skip-1_N2000_W50_I5000_int32",
+                   *state(5000, torch.int32),
+                   _basket_block(rng, 2000, 50, 5000))
+    parity.compare("replacement_pairs_pm1_N400_W500_I5000_int32",
+                   *state(5000, torch.int32),
+                   _basket_block(rng, 400, 500, 5000, replacements=True))
+    parity.compare("len0_lenW_skip_ge_len_N3000_W71_I4099_int16",
+                   *state(4099, torch.int16),
+                   _basket_block(rng, 3000, 71, 4099, edges=True))
+    for dtype in (torch.int32, torch.int16):
+        parity.compare(f"contention_10000_ops_one_new_W32_I4096_"
+                       f"{str(dtype).split('.')[-1]}",
+                       *state(4096, dtype),
+                       _basket_block(rng, 10_000, 32, 4096, hot_new=17))
+
+    # int16 wraparound: 40,000 ops add +1 to the cells (3, 5)/(5, 3) and
+    # 40,000 add -1 to (7, 11)/(11, 7), each starting 7 from its limit.
+    n = 40_000
+    ops = (np.r_[np.full(n, 3), np.full(n, 7)],
+           np.r_[np.full((n, 1), 5), np.full((n, 1), 11)],
+           np.ones(2 * n), np.full(2 * n, -1), np.r_[np.ones(n), -np.ones(n)])
+    from tpu_cooccurrence_torch.ops.expand import pack_block
+
+    block = torch.from_numpy(pack_block(*(a.astype(np.int32) for a in ops)))
+    C = torch.zeros((64, 64), dtype=torch.int16)
+    C[3, 5] = C[5, 3] = 32_760
+    C[7, 11] = C[11, 7] = -32_760
+    # Every op CASes one of the same two words: few reps.
+    kc, _ = parity.compare("int16_wraparound_80000_ops", C.to(dev),
+                           torch.zeros(64, dtype=torch.int32, device=dev),
+                           block.to(dev), reps=3)
+    want_up, want_down = (int(np.int64(v).astype(np.int16))
+                          for v in (32_760 + n, -32_760 - n))
+    got = kc.cpu()
+    if (int(got[3, 5]), int(got[5, 3]), int(got[7, 11]),
+            int(got[11, 7])) != (want_up, want_up, want_down, want_down):
+        _fail(f"int16 wraparound: got {got[3, 5]}, {got[7, 11]}, want "
+              f"{want_up}, {want_down}")
+
+    # The last cell of an odd-sized int16 C, followed in its buffer by two
+    # guard cells: the 16-bit adds must leave the bytes past C alone.
+    from tpu_cooccurrence_torch.ops.expand import apply_baskets
+
+    odd, n = 4099, 64
+    buf = torch.full((odd * odd + 2,), 77, dtype=torch.int16, device=dev)
+    C = buf[:odd * odd].view(odd, odd)
+    C.zero_()
+    ops = (np.full(n, odd - 1), np.full((n, 1), odd - 1), np.ones(n),
+           np.full(n, -1), np.ones(n))
+    block = torch.from_numpy(pack_block(*(a.astype(np.int32) for a in ops)))
+    rs = torch.zeros(odd, dtype=torch.int32, device=dev)
+    parity.compare("last_cell_odd_I4099_int16", C, rs, block.to(dev))
+    apply_baskets(C, rs, block.to(dev))
+    if int(C[-1, -1]) != 2 * n or buf[odd * odd:].tolist() != [77, 77]:
+        _fail(f"odd int16 C: last cell {int(C[-1, -1])} (want {2 * n}), "
+              f"guard cells {buf[odd * odd:].tolist()} (want [77, 77])")
+    del buf, C, rs
+
+    # Ids near I - 1 at the int16 vocabulary ceiling: cell offsets
+    # new * I + p pass 2^31.
+    big = 61_440
+    C = torch.zeros((big, big), dtype=torch.int16, device=dev)
+    rs = torch.zeros(big, dtype=torch.int32, device=dev)
+    block = _basket_block(rng, 500, 64, big, id_base=big - 300)
+    kc, _ = parity.compare("ids_near_I-1_I61440_int16", C, rs, block)
+    hi = int((kc[big - 300:].ne(0)).sum())
+    if hi == 0:
+        _fail("ids near I - 1: no cell past offset 2^31 was written")
+    print(f"  {hi} cells written past offset 2^31 "
+          f"({(big - 300) * big} .. {big * big - 1})", flush=True)
+    del C, rs, kc
+    torch.cuda.empty_cache()
+
+
+def _valid_pairs(block: np.ndarray) -> int:
+    """Valid cells (pairs per direction) of a packed host block."""
+    w = block.shape[1] - 4
+    j = np.arange(w)[None, :]
+    lens, skips = block[:, w + 1:w + 2], block[:, w + 2:w + 3]
+    return int(((j < lens) & (j != skips)).sum())
+
+
+def _recording_blocks(blocks: list):
+    """Patch the scorer's ``pack_block`` to keep every host block it
+    packs (a reference only; the block is not copied). Returns a restore
+    function."""
+    from tpu_cooccurrence_torch.ops import device_scorer as ds
+
+    pack = ds.pack_block
+
+    def recording(*args):
+        block = pack(*args)
+        blocks.append(block)
+        return block
+
+    ds.pack_block = recording
+
+    def restore():
+        ds.pack_block = pack
+    return restore
+
+
+def _measure_expand(name, C, rs, block_host):
+    """Kernel, plain and chained-scatter yardstick times for one expand
+    launch, on scratch copies of the state, plus the bound."""
+    import torch
+
+    from tpu_cooccurrence_torch.ops.aggregate import aggregate_window_coo
+    from tpu_cooccurrence_torch.ops.device_scorer import _apply_coo
+    from tpu_cooccurrence_torch.ops.expand import (
+        apply_baskets, apply_baskets_reference, split_block)
+    from tpu_cooccurrence_torch.sampling.reservoir import BasketBatch
+
+    block = torch.from_numpy(block_host).to("cuda")
+    Cs, rss = C.clone(), rs.clone()
+    ms = _time_ms(lambda: apply_baskets(Cs, rss, block), 20)
+    plain_ms = _time_ms(lambda: apply_baskets_reference(Cs, rss, block), 5)
+    # Yardstick: the chained path's scatter of the same window's folded
+    # lanes, handed over ready-made (the nearest PyTorch call; the port's
+    # fused path never calls it).
+    baskets, new, lens, skips, signs = (
+        t.numpy() for t in split_block(torch.from_numpy(block_host)))
+    pairs = BasketBatch(new, baskets, lens, skips, signs).to_pairs()
+    src, dst, delta = aggregate_window_coo(pairs.src, pairs.dst, pairs.delta)
+    src_t = torch.from_numpy(src.astype(np.int64)).to("cuda")
+    dst_t = torch.from_numpy(dst.astype(np.int64)).to("cuda")
+    delta_t = torch.from_numpy(delta.astype(np.int32)).to("cuda")
+    library_ms = _time_ms(
+        lambda: _apply_coo(Cs, rss, src_t, dst_t, delta_t), 20)
+    del Cs, rss
+    # Bound: the block read once, and each distinct 32-byte sector of C
+    # and of the row sums that the launch touches read and written once
+    # (64 bytes over HBM; repeated adds to one sector can stay in L2).
+    # The folded lanes are the distinct cells touched (the fold keeps
+    # zero-sum cells), and their sources the distinct row sums.
+    n, w = block_host.shape[0], block_host.shape[1] - 4
+    p = _valid_pairs(block_host)
+    cells = src.astype(np.int64) * C.shape[0] + dst
+    c_sectors = len(np.unique(cells * C.element_size() // 32))
+    rs_sectors = len(np.unique(src.astype(np.int64) * 4 // 32))
+    nbytes = 4 * n * (w + 4) + 64 * (c_sectors + rs_sectors)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  time {name}: {n} ops, W={w}, {p} pairs per direction, "
+          f"{len(src)} folded cells in {c_sectors} C sectors, "
+          f"{rs_sectors} row-sum sectors, {nbytes} bytes: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, chained _apply_coo "
+          f"yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+def _reset_dispatch_gauges():
+    from tpu_cooccurrence_torch.observability.registry import REGISTRY
+
+    for name in ("cooc_fused_dispatches_total",
+                 "cooc_chained_dispatches_total"):
+        REGISTRY.gauge(name).set(0)
+
+
+def _dispatches():
+    from tpu_cooccurrence_torch.observability.registry import REGISTRY
+
+    return (int(REGISTRY.gauge("cooc_fused_dispatches_total").get()),
+            int(REGISTRY.gauge("cooc_chained_dispatches_total").get()))
+
+
+def _score_seconds_ms(job):
+    s = [w.score_seconds * 1e3 for w in job.step_timer.windows]
+    return float(np.median(s)), float(np.sum(s))
+
+
+def phase_fused_main_path(parity: ExpandParity, card: str,
+                          chained_job) -> dict:
+    from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
+    from tpu_cooccurrence_torch.ops import expand as ex
+    from tpu_cooccurrence_torch.ops import score_topk as st
+    from tpu_cooccurrence_torch.ops.score_topk import topk_parity
+
+    print("phase 9: dense fused window (--fused-window on), bench "
+          "workload", flush=True)
+    users, items, ts = _bench_stream()
+    blocks: list = []
+    restore = _recording_blocks(blocks)
+    try:
+        _reset_dispatch_gauges()
+        ex.LAUNCHES = st.LAUNCHES = 0
+        job, elapsed = _run_job("cuda", "int32", users, items, ts,
+                                num_items=20_000, fused_window="on")
+        launches, score_launches = ex.LAUNCHES, st.LAUNCHES
+        fused, chained = _dispatches()
+    finally:
+        restore()
+    pair_windows = sum(1 for w in job.step_timer.windows if w.pairs > 0)
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    print(f"  {card}: {elapsed:.3f} s, {pairs / elapsed:.1f} pairs/s, "
+          f"{job.windows_fired} windows ({pair_windows} with pairs), "
+          f"{launches} expand launches, {score_launches} score launches; "
+          f"dispatches fused {fused}, chained {chained}", flush=True)
+    if launches < pair_windows or launches <= 0:
+        _fail(f"the fused main path launched the expand kernel {launches} "
+              f"times for {pair_windows} pair-carrying windows")
+    if fused != pair_windows or chained != 0:
+        _fail(f"routing: {fused} fused and {chained} chained dispatches "
+              f"for {pair_windows} pair-carrying windows")
+    if job.counters.as_dict() != chained_job.counters.as_dict():
+        _fail(f"counters differ from the chained run: {job.counters} vs "
+              f"{chained_job.counters}")
+    a = job.scorer.checkpoint_state()
+    b = chained_job.scorer.checkpoint_state()
+    for key in ("C", "row_sums", "observed"):
+        if not np.array_equal(a[key], b[key]):
+            _fail(f"fused vs chained: {key} differs")
+    ia, va, da = _rows_table(job, 10)
+    ib, vb, db = _rows_table(chained_job, 10)
+    if ia != ib or not np.array_equal(va, vb) or not np.array_equal(da, db):
+        _fail("fused vs chained: rows differ (ids or float32 scores)")
+    f_med, f_sum = _score_seconds_ms(job)
+    c_med, c_sum = _score_seconds_ms(chained_job)
+    print(f"  state, counters and {len(ia)} rows exactly equal to phase 4's "
+          f"chained run; score_seconds per window: fused median "
+          f"{f_med:.3f} ms (sum {f_sum:.3f} ms), chained median "
+          f"{c_med:.3f} ms (sum {c_sum:.3f} ms)", flush=True)
+    print(f"  host stages: {job.step_timer.summary()}", flush=True)
+    _device_profile(lambda: _run_job("cuda", "int32", users, items, ts,
+                                     num_items=20_000,
+                                     fused_window="on")[1], elapsed)
+
+    print("  phase 3's stream, user cut 3: fused cuda vs fused cpu",
+          flush=True)
+    users3, items3, ts3 = _parity_stream()
+    for dtype in ("int32", "int16"):
+        small: list = []
+        restore = _recording_blocks(small)
+        try:
+            before = ex.LAUNCHES
+            gpu, t_gpu = _run_job("cuda", dtype, users3, items3, ts3,
+                                  user_cut=3, fused_window="on")
+            n_launch = ex.LAUNCHES - before
+        finally:
+            restore()
+        cpu, t_cpu = _run_job("cpu", dtype, users3, items3, ts3,
+                              user_cut=3, fused_window="on")
+        if gpu.counters.as_dict() != cpu.counters.as_dict():
+            _fail(f"uc3 {dtype}: counters differ {gpu.counters} vs "
+                  f"{cpu.counters}")
+        a, b = gpu.scorer.checkpoint_state(), cpu.scorer.checkpoint_state()
+        for key in ("C", "row_sums", "observed"):
+            if not np.array_equal(a[key], b[key]):
+                _fail(f"uc3 {dtype}: {key} differs between cuda and cpu")
+        ia, va, da = _rows_table(gpu, 10)
+        ib, vb, db = _rows_table(cpu, 10)
+        ok, mism = topk_parity(va, da, vb, db, rtol=RTOL, atol=ATOL)
+        if ia != ib or not ok or mism:
+            _fail(f"uc3 {dtype}: final rows differ (same items {ia == ib},"
+                  f" scores_ok {ok}, untied id mismatches {mism})")
+        rep_ops = sum(int((blk[:, -1] < 0).sum()) for blk in small)
+        if n_launch <= 0 or rep_ops <= 0:
+            _fail(f"uc3 {dtype}: {n_launch} expand launches, {rep_ops} "
+                  f"replacement ops on the card")
+        print(f"  uc3 {dtype}: {gpu.windows_fired} windows, {len(ia)} "
+              f"rows, {n_launch} expand launches carrying {rep_ops} "
+              f"replacement (-1) ops; counters/C/row_sums/observed equal, "
+              f"rows in parity; cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s",
+              flush=True)
+
+    # The main run's largest launch, replayed on its final state.
+    largest = max(blocks, key=_valid_pairs)
+    sc = job.scorer
+    import torch
+
+    parity.compare(f"main_path_largest_launch_N{largest.shape[0]}_"
+                   f"W{largest.shape[1] - 4}", sc.C, sc.row_sums,
+                   torch.from_numpy(largest).to("cuda"), reps=5)
+    m = _measure_expand(f"main_path_largest_launch_N{largest.shape[0]}",
+                        sc.C, sc.row_sums, largest)
+    return dict(launches=launches, **m)
+
 
 def main() -> int:
     try:
@@ -733,8 +1117,12 @@ def main() -> int:
     phase_rect_kernel(rect_parity)
     phase_sparse_path_parity()
     sparse_run = phase_sparse_main_path(rect_parity, card)
+    expand_parity = ExpandParity()
+    phase_expand_kernel(expand_parity)
+    fused_run = phase_fused_main_path(expand_parity, card, main_run["job"])
 
-    for name, par in (("score_topk", parity), ("rect_topk", rect_parity)):
+    for name, par in (("score_topk", parity), ("rect_topk", rect_parity),
+                      ("expand_scatter", expand_parity)):
         print(f"{name} parity: {par.cases} cases, max_abs_err "
               f"{par.max_abs_err:.3g}", flush=True)
     print(card, flush=True)
@@ -742,6 +1130,8 @@ def main() -> int:
         _kernel_entry("score_topk", "pallas_score.py:57", parity, main_run),
         _kernel_entry("rect_topk", "pallas_score.py:214", rect_parity,
                       sparse_run),
+        _kernel_entry("expand_scatter", "pallas_score.py:442",
+                      expand_parity, fused_run),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

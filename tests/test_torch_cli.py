@@ -6,7 +6,9 @@ dataset loader into the ``user,item,timestamp`` lines both CLIs read.
 
 - Against ``--backend device``: stdout must be byte-identical. Both sides
   score in float32 with the same operation order and render 4 decimals;
-  ties order by the lowest column on both.
+  ties order by the lowest column on both. The port's ``--fused-window
+  on`` must equal its chained run and the JAX ``--backend device`` with
+  the fused window on or off, byte for byte.
 - ``--backend sparse`` against the JAX package's ``--backend sparse``
   (its default narrow cells and packed uplink are exact, so the int32 raw
   port matches it): stdout byte-identical, with and without
@@ -111,6 +113,31 @@ def test_cli_matches_jax_device_and_oracle(capsys, tmp_path, fixture, args):
     _assert_latest_close(_parse(oracle), _parse(port))
 
 
+FUSED_RUNS = [
+    ("u.data", ["-ws", "1000000000"]),
+    ("u.data", ["-ws", "1000000000", "--count-dtype", "int16", "-k", "5"]),
+    ("ratings.csv", ["-ws", "1000000000"]),
+    ("ratings.csv", ["-ws", "100000000000", "--count-dtype", "int16",
+                     "-k", "5"]),
+    ("ratings.csv", ["-ws", "1", "-wu", "DAYS", "-ic", "4", "-uc", "3"]),
+]
+
+
+@pytest.mark.parametrize("fixture,args", FUSED_RUNS)
+def test_cli_fused_window_matches_chained_and_jax_device(capsys, tmp_path,
+                                                         fixture, args):
+    path, _ = _fixture_csv(tmp_path, fixture)
+    base = ["-i", path, "-s", "0xC0FFEE", *args]
+    fused = _run(capsys, port_cli.main,
+                 base + ["--device", "cpu", "--fused-window", "on"])
+    chained = _run(capsys, port_cli.main, base + ["--device", "cpu"])
+    device = _run(capsys, jax_cli.main, base + ["--backend", "device"])
+    jax_fused = _run(capsys, jax_cli.main,
+                     base + ["--backend", "device", "--fused-window", "on"])
+    assert fused.strip(), "the fixture produced no rows"
+    assert fused == chained == device == jax_fused
+
+
 @pytest.mark.parametrize("fixture", ["u.data", "ratings.csv"])
 @pytest.mark.parametrize("cuts", [(500, 500), (4, 3)])
 def test_cross_backend_counters_match_oracle(tmp_path, fixture, cuts):
@@ -137,7 +164,8 @@ def test_port_run_loads_no_jax(tmp_path):
         "from tpu_cooccurrence_torch import cli\n"
         f"argv = ['-i', {path!r}, '-ws', '1000000000', '-s', '0xC0FFEE', "
         "'--device', 'cpu']\n"
-        "rc = cli.main(argv) or cli.main(argv + ['--backend', 'sparse'])\n"
+        "rc = (cli.main(argv) or cli.main(argv + ['--backend', 'sparse'])\n"
+        "      or cli.main(argv + ['--fused-window', 'on']))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_cooccurrence'))\n"
         "print(json.dumps({'rc': rc, 'bad': bad}))\n")
@@ -180,7 +208,7 @@ def test_port_sources_import_no_jax(path):
 @pytest.mark.parametrize("flag", [
     ["--backend", "sharded"],
     ["--backend", "oracle"],
-    ["--fused-window", "on"],
+    ["--pallas", "off"],
     ["--pipeline-depth", "2"],
     ["--checkpoint-dir", "ckpt"],
     ["--serve-port", "8080"],

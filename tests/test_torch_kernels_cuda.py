@@ -11,16 +11,19 @@ imports JAX; skip it there):
 Tolerance (``topk_parity``): scores ``rtol=1e-5, atol=1e-5``. Kernel and
 plain version are both IEEE float32 in the same operation order (no fast
 math, no FMA contraction), so they agree to the rounding of ``log1pf``.
+The expand + scatter kernel's results are integers: exactly equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_cooccurrence_torch.ops import expand as ex
 from tpu_cooccurrence_torch.ops import rect_topk as rt
 from tpu_cooccurrence_torch.ops import score_topk as st
 from tpu_cooccurrence_torch.ops.device_scorer import DeviceScorer
-from tpu_cooccurrence_torch.sampling.reservoir import PairDeltaBatch
+from tpu_cooccurrence_torch.sampling.reservoir import (BasketBatch,
+                                                       PairDeltaBatch)
 from tpu_cooccurrence_torch.state.sparse_scorer import SparseDeviceScorer
 
 RTOL = ATOL = 1e-5
@@ -164,6 +167,81 @@ def test_sparse_scorer_on_card_matches_cpu(card):
     assert rt.LAUNCHES - before == 4
     a, b = on_card.checkpoint_state(), on_cpu.checkpoint_state()
     for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    x, y = on_card.flush(), on_cpu.flush()
+    np.testing.assert_array_equal(x.rows, y.rows)
+    ok, mism = st.topk_parity(x.vals, x.idx, y.vals, y.idx, rtol=RTOL,
+                              atol=ATOL)
+    assert ok and mism == 0, (ok, mism)
+
+
+def _basket_ops(seed, n, w, num_items, hot_new=None):
+    """Seeded star ops as a :class:`BasketBatch`: len 0 and len W ops,
+    skips in range and past len, signs +-1, garbage past each len, and
+    (``hot_new``) every op on the same new item."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, w + 1, n)
+    lens[0], lens[1] = 0, w
+    j = np.arange(w)[None, :]
+    baskets = np.where(j < lens[:, None], rng.integers(0, num_items, (n, w)),
+                       rng.integers(-2**31, 2**31 - 1, (n, w)))
+    skips = np.where(rng.random(n) < 0.4, rng.integers(0, w + 2, n), -1)
+    signs = np.where(rng.random(n) < 0.7, 1, -1)
+    new = (np.full(n, hot_new) if hot_new is not None
+           else rng.integers(0, num_items, n))
+    return BasketBatch(*(a.astype(np.int32) for a in
+                         (new, baskets, lens, skips, signs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,w,n_items,dtype,hot", [
+    (20, 500, 40, 300, torch.int32, None),
+    (21, 500, 40, 1001, torch.int16, None),     # odd I: the last cell
+    (22, 3000, 3, 64, torch.int16, 7),          # contention, wraparound
+    (23, 65, 700, 4096, torch.int32, None),     # rows wider than a warp
+])
+def test_expand_kernel_matches_plain_on_card(card, seed, n, w, n_items, dtype,
+                                             hot):
+    b = _basket_ops(seed, n, w, n_items, hot)
+    block = torch.from_numpy(ex.pack_block(b.new_items, b.baskets, b.lens,
+                                           b.skips, b.signs)).to(card)
+    rng = np.random.default_rng(seed)
+    c0 = torch.from_numpy(rng.integers(-30_000, 30_000, (n_items, n_items))
+                          ).to(dtype).to(card)
+    rs0 = torch.from_numpy(rng.integers(0, 1 << 20, n_items).astype(
+        np.int32)).to(card)
+    got_c, got_rs = c0.clone(), rs0.clone()
+    want_c, want_rs = c0.clone(), rs0.clone()
+    before = ex.LAUNCHES
+    for _ in range(3):  # repeated: counts keep adding (and wrapping)
+        ex.apply_baskets(got_c, got_rs, block)
+        ex.apply_baskets_reference(want_c, want_rs, block)
+    assert ex.LAUNCHES == before + 3
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got_rs, want_rs)
+    assert not torch.equal(got_c, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count_dtype", ["int32", "int16"])
+def test_fused_scorer_on_card_matches_cpu(card, count_dtype):
+    """The fused window on the card keeps the same integer state as on
+    the CPU, one expand launch per window."""
+    on_card = DeviceScorer(0, 10, count_dtype=count_dtype, device=card,
+                           defer_results=True, fused_window="on")
+    on_cpu = DeviceScorer(0, 10, count_dtype=count_dtype, device="cpu",
+                          defer_results=True, fused_window="on")
+    before = ex.LAUNCHES
+    for seed in range(4):
+        b = _basket_ops(30 + seed, 400, 12, 1500)
+        for sc in (on_card, on_cpu):
+            sc.process_window(0, BasketBatch(*(a.copy() for a in (
+                b.new_items, b.baskets, b.lens, b.skips, b.signs))))
+            assert sc.last_dispatch_fused
+    assert ex.LAUNCHES - before == 4
+    a, b = on_card.checkpoint_state(), on_cpu.checkpoint_state()
+    for key in ("C", "row_sums", "observed"):
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     x, y = on_card.flush(), on_cpu.flush()
     np.testing.assert_array_equal(x.rows, y.rows)

@@ -8,9 +8,9 @@ default, or a value of :data:`_PORTED_VALUES`) raises :class:`NotPorted`
 (the CLI exits 78, ``EX_CONFIG``) naming the flag: nothing is silently
 ignored.
 
-Two backends are ported: ``device`` (the dense ``C``) and ``sparse`` (the
-slab; ``hybrid`` is its retired alias). The port adds ``--device
-cuda|cpu`` (default ``cuda``).
+Two backends are ported: ``device`` (the dense ``C``, with its fused
+window, ``--fused-window``) and ``sparse`` (the slab; ``hybrid`` is its
+retired alias). The port adds ``--device cuda|cpu`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ class Config:
     score_ladder: Optional[int] = None  # sparse bucket ladder; None = 4
     cell_dtype: str = "auto"  # sparse slab cells; auto = int32 here
     wire_format: str = "auto"  # sparse uplink; auto = raw here
+    fused_window: str = "off"  # dense fused window; auto = on on cuda
 
     def __post_init__(self):
         if self.seed is None:
@@ -104,6 +105,13 @@ class Config:
             if value not in _PORTED_VALUES[dest]:
                 raise NotPorted(f"{flag}={value} is not yet ported to "
                                 f"tpu_cooccurrence_torch")
+        if self.fused_window not in ("auto", "on", "off"):
+            raise ValueError(f"--fused-window must be auto|on|off, got "
+                             f"{self.fused_window!r}")
+        if self.fused_window == "on" and self.sparse:
+            # The sparse fused window consumes folded deltas, not baskets.
+            raise NotPorted("--fused-window on with --backend sparse is "
+                            "not yet ported to tpu_cooccurrence_torch")
         if self.score_ladder is not None:
             ladder_bits(self.score_ladder)
         if self.device == "cuda" and self.top_k > MAX_TOP_K:
@@ -141,6 +149,8 @@ class Config:
                         resolve_wire_format(self.wire_format))
             logger.info("scoreLadder\t%s", self.score_ladder
                         or tuning.default("score_ladder"))
+        else:
+            logger.info("fusedWindow\t%s", self.fused_window)
         logger.info("numItems\t%s", self.num_items)
         logger.info("device\t%s", self.device)
 
@@ -315,15 +325,15 @@ _NOT_PORTED_FLAGS = (
 
 #: Values of those flags that the port carries (their default otherwise);
 #: a flag that names a :class:`Config` field keeps its value there. The
-#: kernels always run on the card (``--pallas on``); ``--fused-window
-#: auto`` resolves off off-TPU in the reference package too; the sparse
-#: slab holds int32 cells, takes the raw uplink and scores variable
-#: shapes (eager PyTorch compiles nothing per shape, so ``--fixed-score``
-#: has nothing to fix).
+#: kernels always run on the card (``--pallas on``); ``--fused-window``
+#: is the dense backend's (the sparse one runs chained under ``auto``);
+#: the sparse slab holds int32 cells, takes the raw uplink and scores
+#: variable shapes (eager PyTorch compiles nothing per shape, so
+#: ``--fixed-score`` has nothing to fix).
 _PORTED_VALUES = {
     "backend": ("device", "sparse", "hybrid"),
     "pallas": ("auto", "on"),
-    "fused_window": ("auto", "off"),
+    "fused_window": ("auto", "on", "off"),
     "cell_dtype": ("auto", "int32"),
     "wire_format": ("auto", "raw"),
     "fixed_score": ("auto", "off"),

@@ -1,7 +1,8 @@
 """The job: ingest -> windowing -> sampling -> device scoring.
 
 Port of ``tpu_cooccurrence/job.py`` on its serial path, with the dense
-(``--backend device``) and the sparse slab (``--backend sparse``) scorers.
+(``--backend device``, chained or ``--fused-window``) and the sparse slab
+(``--backend sparse``) scorers.
 The host streams micro-batches through the window engine and the
 vectorized cut operators, and each fired window becomes one scorer step
 (scatter-update, then LLR + top-K on the card). The feedback edge
@@ -55,6 +56,10 @@ class CooccurrenceJob:
             config.user_cut, config.seed, config.skip_cuts,
             counters=self.counters)
         self.scorer = scorer if scorer is not None else self._make_scorer()
+        if getattr(self.scorer, "wants_baskets", False):
+            # The fused window: the sampler hands the scorer un-expanded
+            # star ops, which the card expands (ops/expand.py).
+            self.sampler.emit_baskets = True
         # external item id -> [(external other, score) desc]
         self.latest = LatestResults(self.item_vocab)
         # Optional streaming hook, called with every absorbed window
@@ -95,7 +100,8 @@ class CooccurrenceJob:
             cfg.num_items, cfg.top_k, self.counters,
             max_pairs_per_step=cfg.max_pairs_per_step,
             count_dtype=cfg.count_dtype, device=cfg.device,
-            defer_results=not cfg.emit_updates)
+            defer_results=not cfg.emit_updates,
+            fused_window=cfg.fused_window)
 
     def add_batch(self, users: np.ndarray, items: np.ndarray,
                   ts: np.ndarray) -> None:

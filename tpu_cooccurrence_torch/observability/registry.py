@@ -1,9 +1,10 @@
-"""Fixed-log-bucket histograms (trimmed copy).
+"""Gauges and fixed-log-bucket histograms (trimmed copy).
 
 Copy of ``tpu_cooccurrence/observability/registry.py`` without the
 Prometheus exposition (the port serves no ``/metrics`` yet): the job
 records per-window stage seconds here and logs their tail summaries at
-the end of a run.
+the end of a run; the dense scorer counts its fused and chained window
+dispatches in gauges.
 """
 
 from __future__ import annotations
@@ -31,6 +32,28 @@ def log_buckets(lo: float, hi: float, base: float = 2.0) -> List[float]:
 
 #: Seconds: ~61 us .. 64 s (21 buckets).
 SECONDS_BUCKETS = log_buckets(2.0 ** -14, 2.0 ** 6)
+
+
+class Gauge:
+    """A single instantaneous value (last write wins)."""
+
+    def __init__(self, name: str, help: str = "") -> None:
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def add(self, delta: float) -> None:
+        with self._lock:
+            self._value += float(delta)
+
+    def get(self) -> float:
+        with self._lock:
+            return self._value
 
 
 class Histogram:
@@ -85,11 +108,19 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Named histograms, get-or-create."""
+    """Named gauges and histograms, get-or-create."""
 
     def __init__(self) -> None:
+        self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
         self._lock = threading.Lock()
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name, help)
+            return g
 
     def histogram(self, name: str,
                   bounds: Optional[Sequence[float]] = None,

@@ -55,6 +55,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                              _c_void_p, _c_void_p],
         "rect_topk_error_string": [_c_int],
     },
+    "expand_scatter": {
+        # block, n_ops, width, C, count_bytes, row_sums, num_items, stream
+        "expand_scatter_launch": [_c_void_p, _c_int, _c_int, _c_void_p,
+                                  _c_int, _c_void_p, _c_int, _c_void_p],
+        "expand_scatter_error_string": [_c_int],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,19 @@
 """Single-device dense scoring backend, in PyTorch.
 
-Port of ``tpu_cooccurrence/ops/device_scorer.py`` (the chained path). Per
-window, the folded COO pair deltas are scatter-added into a dense item x
-item count matrix ``C`` kept in device memory, row sums are maintained by
-a scatter-add by source row, and every touched row is LLR-scored and
-top-K'd by :func:`~.score_topk.score_topk` (the hand-written CUDA kernel
-on a card, its plain PyTorch version on the CPU).
+Port of ``tpu_cooccurrence/ops/device_scorer.py``. On the chained path,
+per window, the folded COO pair deltas are scatter-added into a dense
+item x item count matrix ``C`` kept in device memory, row sums are
+maintained by a scatter-add by source row, and every touched row is
+LLR-scored and top-K'd by :func:`~.score_topk.score_topk` (the
+hand-written CUDA kernel on a card, its plain PyTorch version on the CPU).
+
+On the fused window (``fused_window="on"``, ``--fused-window``) the
+sampler hands over un-expanded star ops (:class:`BasketBatch`) instead:
+the host neither expands nor folds them, :func:`~.expand.apply_baskets`
+expands and scatters them into ``C`` and the row sums on the card, and
+the same score launches follow on the same stream, with no host
+synchronisation between the upload and the last score launch. The
+integer state and the rows equal the chained path's exactly.
 
 Counts are int32 by default; ``count_dtype="int16"`` keeps reference-style
 short counts that wrap on overflow. Row sums are int32 always. ``observed``
@@ -29,15 +37,31 @@ from .. import tuning
 from ..device import resolve_device
 from ..metrics import Counters, RESCORED_ITEMS, ROW_SUM_PROCESS_WINDOW
 from ..observability import LEDGER
-from ..sampling.reservoir import PairDeltaBatch
+from ..observability.registry import REGISTRY
+from ..sampling.reservoir import BasketBatch, PairDeltaBatch
 from ..state.results import TopKBatch
 from .aggregate import (aggregate_window_coo, distinct_sorted,
                         narrow_deltas_int32)
+# pack_block is looked up here at call time, so a caller may wrap it to
+# keep the blocks a run uploads (chip_smoke.py replays the largest).
+from .expand import apply_baskets, pack_block
 from .score_topk import MAX_TOP_K, score_topk, topk_padded  # noqa: F401
 
 # Not ported, by design: the chunked-upload split (a TPU-link workaround),
 # the uint16 COO wire format (halved bytes on the TPU link), the XLA
 # compilation cache and buffer donation (XLA-only).
+
+
+def resolve_fused_flag(fused_window: str, device: torch.device) -> bool:
+    """Resolve an ``auto|on|off`` ``--fused-window`` request: ``auto`` is
+    on where the scorer runs on the card (as the reference package turns
+    it on on its accelerator) and off on the CPU."""
+    if fused_window not in ("auto", "on", "off"):
+        raise ValueError(
+            f"fused_window must be auto|on|off, got {fused_window!r}")
+    if fused_window == "auto":
+        return device.type == "cuda"
+    return fused_window == "on"
 
 
 def score_row_budget(num_items: int, cap: int) -> int:
@@ -162,7 +186,8 @@ class DeviceScorer:
                      "max_pairs_per_step"),
                  count_dtype: str = "int32",
                  device="cuda",
-                 defer_results: bool = False) -> None:
+                 defer_results: bool = False,
+                 fused_window: str = "off") -> None:
         if count_dtype not in ("int32", "int16"):
             raise ValueError(
                 f"count_dtype must be int32|int16, got {count_dtype}")
@@ -193,6 +218,18 @@ class DeviceScorer:
         self.defer_results = bool(defer_results)
         self._results = (DeferredResultsTable(top_k, num_items, self.device)
                          if self.defer_results else None)
+        # The fused window: the job has the sampler emit baskets iff this
+        # resolved on.
+        self.wants_baskets = resolve_fused_flag(fused_window, self.device)
+        # Which path the last process_window took.
+        self.last_dispatch_fused = False
+        self._fused_dispatches = REGISTRY.gauge(
+            "cooc_fused_dispatches_total",
+            help="windows dispatched through the fused window")
+        self._chained_dispatches = REGISTRY.gauge(
+            "cooc_chained_dispatches_total",
+            help="windows dispatched through the chained scatter+score "
+                 "path")
 
     def _ensure_capacity(self, max_id: int) -> None:
         if max_id < self.num_items:
@@ -210,17 +247,34 @@ class DeviceScorer:
             self._results.resize(n)
 
     def _to_device(self, arr: np.ndarray, dtype) -> torch.Tensor:
+        """``arr`` as a ``dtype`` tensor on the scorer's device, without a
+        host sync: on the card it is staged in pinned memory and copied
+        non-blocking (the caching host allocator holds the pinned buffer
+        until its copy has run, so ``arr`` may be reused at once)."""
         LEDGER.up(arr)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=self.device, dtype=dtype)
+        host = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
-    def process_window(self, ts: int, pairs: PairDeltaBatch) -> TopKBatch:
-        """Apply one window's pair deltas and rescore its touched rows.
+    def process_window(self, ts: int, pairs) -> TopKBatch:
+        """Apply one window's pair deltas (a :class:`PairDeltaBatch`, or a
+        :class:`BasketBatch` from a sampler in basket mode) and rescore
+        its touched rows.
 
         Returns the window's top-K rows, or an empty batch in deferred
         mode (the rows wait in the device table for :meth:`flush`).
         """
         self.last_dispatched_rows = 0
+        self.last_dispatch_fused = False
+        if isinstance(pairs, BasketBatch):
+            if self.wants_baskets:
+                routed = self._try_fused(pairs)
+                if routed is not None:
+                    return routed
+            # Fused off, or a window with no pairs: the chained path on
+            # the host expansion (the same pair multiset).
+            pairs = pairs.to_pairs()
         if len(pairs) == 0:
             return TopKBatch.empty(self.top_k)
         self._ensure_capacity(int(max(pairs.src.max(), pairs.dst.max())))
@@ -237,14 +291,61 @@ class DeviceScorer:
         window_sum = int(pairs.delta.sum())
         self.observed += window_sum
         self.counters.add(ROW_SUM_PROCESS_WINDOW, window_sum)
+        self._chained_dispatches.add(1)
+        return self._score_rows(distinct_sorted(src))
 
-        rows = distinct_sorted(src)
+    def _try_fused(self, b: BasketBatch) -> Optional[TopKBatch]:
+        """One window through the fused path, or ``None`` for a window
+        with no pairs (the chained empty-window contract applies)."""
+        per_op = b.pairs_per_op()
+        if int(per_op.sum()) == 0:
+            return None
+        # Capacity from the valid cells only: the others are unspecified.
+        valid = b._valid()
+        active = per_op > 0
+        self._ensure_capacity(int(max(b.new_items[active].max(),
+                                      b.baskets[valid].max())))
+        # Rescore set: every item an emitted pair touches, i.e. the
+        # chained path's distinct_sorted(src) (its fold keeps zero-sum
+        # cells).
+        rows = np.unique(np.concatenate([
+            b.new_items[active].astype(np.int64),
+            b.baskets[valid].astype(np.int64)])).astype(np.int32)
+        # No lane or one-chunk row gate: those bound XLA's padded [N, 2W]
+        # lane tensors and one-chunk score program; no lane exists here.
+        # The ops axis is cut so one uploaded block holds at most
+        # max_pairs_per_step basket cells (at least one op); one launch
+        # each.
+        ops_per_launch = max(1, self.max_pairs_per_step
+                             // max(b.baskets.shape[1], 1))
+        for lo in range(0, b.n_ops, ops_per_launch):
+            hi = lo + ops_per_launch
+            if not active[lo:hi].any():
+                continue
+            block = pack_block(b.new_items[lo:hi], b.baskets[lo:hi],
+                               b.lens[lo:hi], b.skips[lo:hi],
+                               b.signs[lo:hi])
+            apply_baskets(self.C, self.row_sums,
+                          self._to_device(block, torch.int32))
+
+        # Exact host-side observed, as the chained pairs.delta.sum():
+        # each op contributes 2 * sign * pairs.
+        window_sum = int((2 * b.signs.astype(np.int64) * per_op).sum())
+        self.observed += window_sum
+        self.counters.add(ROW_SUM_PROCESS_WINDOW, window_sum)
+        self.last_dispatch_fused = True
+        self._fused_dispatches.add(1)
+        return self._score_rows(rows)
+
+    def _score_rows(self, rows: np.ndarray) -> TopKBatch:
+        """LLR + top-K of the sorted distinct ``rows`` in
+        ``max_score_rows`` chunks, every launch queued before any result
+        is fetched. Returns the rows, or an empty batch in deferred mode.
+        """
         self.counters.add(RESCORED_ITEMS, len(rows))
         self.last_dispatched_rows = len(rows)
         observed = float(np.float32(self.observed))
-        rows_l: List[np.ndarray] = []
-        idx_l: List[np.ndarray] = []
-        vals_l: List[np.ndarray] = []
+        launched = []
         for lo in range(0, len(rows), self.max_score_rows):
             chunk = rows[lo: lo + self.max_score_rows]
             rows_t = self._to_device(chunk, torch.int32)
@@ -252,17 +353,22 @@ class DeviceScorer:
                                    self.top_k)
             if self.defer_results:
                 self._results.scatter(rows_t, vals, idx)
-                continue
-            # Streaming mode materializes each window at once (the
-            # reference package fetches one window late to hide its
-            # link latency; the stdout order is the same either way).
+            else:
+                launched.append((chunk, vals, idx))
+        if self.defer_results:
+            self._results.mark(rows)
+            return TopKBatch.empty(self.top_k)
+        # Streaming mode materializes each window at once (the reference
+        # package fetches one window late to hide its link latency; the
+        # stdout order is the same either way).
+        rows_l: List[np.ndarray] = []
+        idx_l: List[np.ndarray] = []
+        vals_l: List[np.ndarray] = []
+        for chunk, vals, idx in launched:
             rows_l.append(chunk)
             vals_l.append(vals.cpu().numpy())
             idx_l.append(idx.cpu().numpy())
             LEDGER.down(vals_l[-1], idx_l[-1])
-        if self.defer_results:
-            self._results.mark(rows)
-            return TopKBatch.empty(self.top_k)
         return TopKBatch.concatenate(rows_l, idx_l, vals_l, self.top_k)
 
     def flush(self) -> TopKBatch:
