@@ -9,8 +9,11 @@ fatal on failure:
    ``nvcc`` per source, started together).
 2. Dense kernel vs plain on the card: ``score_topk`` (kernel) against
    ``score_topk_reference`` under ``topk_parity`` on edge cases and two
-   full-width shapes, with times (CUDA events), bounds and the
-   ``torch.topk`` selection-only yardstick. Also: the int16
+   full-width shapes, with times (CUDA events), nonzero cells, bounds and
+   the ``torch.topk`` selection-only yardstick. The tie cases (scores
+   equal across warps, odd I at int16, K = 1 and 128, K above a row's
+   nonzero cells, all-zero rows) and the main path's shape must also
+   equal the plain version's ids on every finite lane. Also: the int16
    scatter-add (``index_put_`` with accumulate) wraps on the card as on
    the CPU.
 3. Dense path parity: a seeded Zipf stream through ``CooccurrenceJob`` on
@@ -23,7 +26,10 @@ fatal on failure:
 5. Sparse kernel vs plain on the card: ``rect_topk`` against
    ``rect_topk_reference`` on the edge cases (earliest-slot tie, rows
    shorter than K, cancelled cells, a 100k-cell row, observed ~ 3e10,
-   partner ids above 2^24).
+   partner ids above 2^24) and on the size classes of its launch plan
+   (lengths at the class edges, a 100,000-cell row in one block, rows
+   that tie in every class, all-cancelled rows, K = 1, 10, 128), ids
+   exact on every finite lane.
 6. Sparse path parity: a prefix of the config-4 stream through
    ``CooccurrenceJob --backend sparse`` on cuda and on cpu, deferred and
    streamed: counters and the canonical checkpoint exactly equal, rows
@@ -108,7 +114,8 @@ def _time_ms(fn, reps: int) -> float:
 def _bound(C, rows, k: int):
     """Least time for the same work: bytes (C rows, row sums, rows and
     the outputs, each once) over HBM rate vs 8 ops per nonzero cell of
-    the scored rows over the f32 rate."""
+    the scored rows over the f32 rate. Returns (ms, "bytes" or
+    "operations", nonzero cells)."""
     import torch
 
     s, n = rows.shape[0], C.shape[0]
@@ -119,7 +126,8 @@ def _bound(C, rows, k: int):
             dtype=torch.int64))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz * OPS_PER_CELL / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ((t_bytes, "bytes", nnz) if t_bytes >= t_ops
+            else (t_ops, "operations", nnz))
 
 
 def _reference_chunked(C, rs, rows, observed, k, chunk=2048):
@@ -141,15 +149,19 @@ class Parity:
         self.max_abs_err = 0.0
         self.cases = 0
 
-    def check(self, name, C, rs, rows, observed, k):
+    def check(self, name, C, rs, rows, observed, k, exact=False):
         """``score_topk`` against its plain version."""
         from tpu_cooccurrence_torch.ops.score_topk import score_topk
 
-        self.compare(name, score_topk(C, rs, rows, observed, k),
-                     _reference_chunked(C, rs, rows, observed, k))
+        return self.compare(name, score_topk(C, rs, rows, observed, k),
+                            _reference_chunked(C, rs, rows, observed, k),
+                            exact)
 
-    def compare(self, name, kernel_out, plain_out):
-        """Kernel ``(vals, idx)`` against plain ``(vals, idx)``."""
+    def compare(self, name, kernel_out, plain_out, exact=False):
+        """Kernel ``(vals, idx)`` against plain ``(vals, idx)``. ``exact``
+        (the tie cases, where ``topk_parity`` does not look at ids): every
+        finite lane's score bits and id equal too. Returns the kernel's
+        ``(vals, idx)`` on the host."""
         import torch
 
         from tpu_cooccurrence_torch.ops.score_topk import topk_parity
@@ -165,9 +177,15 @@ class Parity:
             _fail(f"{name}: -inf lanes differ between kernel and plain")
         fin = np.isfinite(pv)
         err = float(np.abs(kv[fin] - pv[fin]).max()) if fin.any() else 0.0
+        if exact and (err != 0.0 or not np.array_equal(ki[fin], pi[fin])):
+            _fail(f"{name}: tied lanes differ between kernel and plain "
+                  f"(max_abs_err {err:.3g}, "
+                  f"{int((ki[fin] != pi[fin]).sum())} ids)")
         self.max_abs_err = max(self.max_abs_err, err)
         self.cases += 1
-        print(f"  parity {name}: ok (max_abs_err {err:.3g})", flush=True)
+        print(f"  parity {name}: ok (max_abs_err {err:.3g}"
+              f"{', ids exact' if exact else ''})", flush=True)
+        return kv, ki
 
 
 def _edge_case(rng, n, s, k, dtype, big=False, wrap=False, zero_rows=0):
@@ -192,6 +210,38 @@ def _edge_case(rng, n, s, k, dtype, big=False, wrap=False, zero_rows=0):
     dev = torch.device("cuda")
     return (torch.from_numpy(C).to(dev), torch.from_numpy(rs).to(dev),
             torch.from_numpy(rows).to(dev), observed, k)
+
+
+def _dense_tie_cases(parity: Parity, rng) -> None:
+    """Cases aimed at the warp-level selection: rows whose scores tie
+    across warps (one or two distinct counts and one row sum for every
+    column, so the top K are the lowest columns; warp 0 queues the
+    highest columns, the unaligned tail, first), odd I at int16 (every
+    row starts at another alignment), K = 1 and 128, K above a row's
+    nonzero cells, and all-zero rows. Ids must equal the plain version's
+    on every finite lane."""
+    import torch
+
+    dev = torch.device("cuda")
+    for n, dt, k in ((4099, np.int16, 128), (4099, np.int16, 1),
+                     (5003, np.int32, 128), (20_000, np.int32, 10)):
+        C = rng.integers(1, 3, size=(n, n)).astype(dt)
+        C[rng.random((n, n)) < 0.5] = 0
+        C[1] = 1                          # one count: every column ties
+        C[2] = 0                          # an all-zero row
+        C[3] = 0
+        C[3, [n - 1, n - 2, 7]] = 2       # fewer nonzero cells than K
+        rows = np.r_[np.arange(8), rng.choice(np.arange(8, n), 57,
+                                              replace=False)]
+        rs = np.full(n, 5 * n, dtype=np.int32)
+        t = [torch.from_numpy(a).to(dev) for a in (C, rs,
+                                                   rows.astype(np.int32))]
+        _, ki = parity.check(f"ties_S65_I{n}_{np.dtype(dt).name}_K{k}", *t,
+                             float(50 * n * n), k, exact=True)
+        if ki[1].tolist() != list(range(k)):
+            _fail(f"tie row at I={n}: ids {ki[1][:8].tolist()}... are not "
+                  f"the lowest columns")
+        del C, t
 
 
 def _full_width(n, s, dtype, seed):
@@ -225,12 +275,15 @@ def _measure(name, C, rs, rows, observed, k, reps=10):
     scores = torch.rand((rows.shape[0], C.shape[0]), device="cuda")
     topk_ms = _time_ms(lambda: torch.topk(scores, k, dim=1), reps)
     del scores
-    bound_ms, bound_by = _bound(C, rows, k)
-    print(f"  time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.topk yardstick {topk_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+    bound_ms, bound_by, nnz = _bound(C, rows, k)
+    print(f"  time {name}: {nnz} nonzero cells of {rows.shape[0]} x "
+          f"{C.shape[0]}: kernel {ms:.4f} ms "
+          f"({nnz / ms / 1e6:.3f} G nonzero cells/s), plain {plain_ms:.4f} "
+          f"ms, torch.topk yardstick {topk_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of "
+          f"it reached)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, nnz=nnz)
 
 
 def phase_kernels(parity: Parity) -> None:
@@ -252,6 +305,7 @@ def phase_kernels(parity: Parity) -> None:
     ]
     for name, n, s, k, dt, kw in cases:
         parity.check(name, *_edge_case(rng, n, s, k, dt, **kw))
+    _dense_tie_cases(parity, rng)
 
     # int16 scatter-add: index_put_ with accumulate wraps on the card as
     # on the CPU (the reference's Java-short semantics).
@@ -428,7 +482,7 @@ def phase_main_path(parity: Parity, card: str) -> dict:
     touched = torch.nonzero(sc.row_sums).flatten().to(torch.int32)
     rows = touched[:sc.max_score_rows].contiguous()
     parity.check("main_path_final_state", sc.C, sc.row_sums, rows,
-                 float(np.float32(obs)), sc.top_k)
+                 float(np.float32(obs)), sc.top_k, exact=True)
     m = _measure(f"main_path_S{rows.shape[0]}_I{sc.num_items}_int32",
                  sc.C, sc.row_sums, rows, float(np.float32(obs)), sc.top_k)
     return dict(launches=launches, job=job, **m)
@@ -556,6 +610,56 @@ def phase_rect_kernel(parity: Parity) -> None:
                   f"slots' partners")
         if "2^24" in name and not bool((got[1] >= 1 << 24).any()):
             _fail(f"{name}: no partner id above 2^24 came out")
+    _rect_class_cases(parity, rng)
+
+
+def _rect_class_cases(parity: Parity, rng) -> None:
+    """Cases aimed at the size classes (a warp per short row, a block per
+    long row): lengths at the class edges L - 1, L, L + 1, rows of 4,095
+    to 12,293 cells and a 100,000-cell row in one block, rows whose cells
+    all tie (one count, one partner row sum) in every class, so the
+    earliest slots must win across warps and blocks, all-cancelled rows,
+    and K = 1, 10, 128. Rows go in the scorer's bucket order; ids must
+    equal the plain version's on every finite lane."""
+    from tpu_cooccurrence_torch.ops.rect_topk import (
+        SHORT_MAX, min_rect_width, rect_topk, rect_topk_reference,
+        score_buckets, short_rows)
+
+    edges = [SHORT_MAX - 1, SHORT_MAX, SHORT_MAX + 1, 4095, 4096, 4097,
+             12_293, 100_000, 1, 0, 40]
+    num_items = 8192
+    for k in (1, 10, 128):
+        lens = np.r_[edges, edges, edges, rng.integers(0, 600, 200)]
+        n = len(lens)
+        tie = np.zeros(n, dtype=bool)
+        tie[len(edges):2 * len(edges)] = True        # second copy: all tie
+        dead = np.zeros(n, dtype=bool)
+        dead[2 * len(edges):3 * len(edges)] = True   # third: all cancelled
+        _, order = score_buckets(lens, min_rect_width(k), 4)
+        lens, tie, dead = lens[order], tie[order], dead[order]
+        starts = 5 + np.concatenate([[0], np.cumsum(lens)[:-1]])
+        cap = int(starts[-1] + lens[-1] + 16)
+        cnt = rng.integers(1, 40, cap)
+        cnt[rng.random(cap) < 0.1] = 0
+        dst = rng.integers(0, num_items, cap)
+        rs = rng.integers(1, 1 << 16, num_items)
+        rs[:64] = 1 << 15                             # the tie partners
+        for i in np.flatnonzero(tie | dead):
+            cell = slice(starts[i], starts[i] + lens[i])
+            cnt[cell] = 0 if dead[i] else 3
+            dst[cell] = rng.integers(0, 64, lens[i])
+        rows = rng.choice(num_items, n, replace=False)
+        n_short = short_rows(lens)
+        t = _cuda_int32((cnt, dst, rs, rows, starts, lens))
+        got = rect_topk(*t, 1e8, k, n_short)
+        _, ki = parity.compare(
+            f"classes_S{n}_K{k} ({n_short} short rows, {n - n_short} long)",
+            got, rect_topk_reference(*t, 1e8, k), exact=True)
+        for i in np.flatnonzero(tie & (lens > 0)):
+            want = dst[starts[i]:starts[i] + min(k, lens[i])]
+            if ki[i, :len(want)].tolist() != want.tolist():
+                _fail(f"tie row of {lens[i]} cells, K={k}: not the earliest "
+                      f"slots' partners")
 
 
 def _topk_batches(batches):
@@ -618,9 +722,9 @@ def _measure_rect(name, args):
         rect_topk_reference, score_buckets)
     from tpu_cooccurrence_torch.sampling.reservoir import _ragged_arange
 
-    cnt, _dst, _rs, rows, starts, lens, _obs, k = args
+    cnt, _dst, _rs, rows, starts, lens, _obs, k, n_short = args
     ms = _time_ms(lambda: rect_topk(*args), 20)
-    plain_ms = _time_ms(lambda: rect_topk_reference(*args), 3)
+    plain_ms = _time_ms(lambda: rect_topk_reference(*args[:8]), 3)
     # Yardstick for the selection alone: torch.topk over the plain
     # version's [S_b, R_b] rectangles of random scores (never called by
     # the port).
@@ -644,11 +748,13 @@ def _measure_rect(name, args):
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     print(f"  time {name}: S={s} rows, {len(cells)} cells ({nnz} live, "
-          f"longest {int(lens.max())}): kernel {ms:.4f} ms, plain "
+          f"longest {int(lens.max())}; {n_short} short rows, "
+          f"{s - n_short} long): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.topk yardstick {topk_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it "
+          f"reached)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, nnz=nnz)
 
 
 def phase_sparse_main_path(parity: Parity, card: str) -> dict:
@@ -661,12 +767,15 @@ def phase_sparse_main_path(parity: Parity, card: str) -> dict:
     print("phase 7: sparse main path at full size (config 4, nothing cut)",
           flush=True)
     users, items, ts = _config4_stream()
-    # Keep the arguments of the run's largest launch (most rows): device
-    # copies, no sync, to time the kernel at exactly that shape afterwards.
+    # Keep the arguments of the run's largest launch (most rows), and every
+    # launch's lengths and short-row count: device copies, no sync, to time
+    # the kernel at exactly that shape and report the classes afterwards.
     largest = {"s": -1}
+    classes = []
     launch = ss.rect_topk
 
     def recording(*args):
+        classes.append((args[5].clone(), args[8]))
         if args[3].shape[0] > largest["s"]:
             largest.update(s=args[3].shape[0], args=tuple(
                 a.clone() if torch.is_tensor(a) else a for a in args))
@@ -709,9 +818,16 @@ def phase_sparse_main_path(parity: Parity, card: str) -> dict:
     _device_profile(lambda: _run_sparse_job("cuda", users, items, ts)[1],
                     elapsed)
 
+    lens = [(ln.cpu().numpy(), n) for ln, n in classes]
+    print(f"  size classes over the {len(lens)} launches: "
+          f"{sum(n for _, n in lens)} short rows, "
+          f"{sum(len(ln) - n for ln, n in lens)} long rows, "
+          f"{sum(int((ln > 4096).sum()) for ln, _ in lens)} rows over 4,096 "
+          f"cells; longest row {max(int(ln.max(initial=0)) for ln, _ in lens)}"
+          f" cells", flush=True)
     args = largest["args"]
     parity.compare("main_path_largest_launch", rt.rect_topk(*args),
-                   rt.rect_topk_reference(*args))
+                   rt.rect_topk_reference(*args[:8]), exact=True)
     m = _measure_rect(f"main_path_largest_launch_S{largest['s']}", args)
     return dict(launches=launches, **m)
 

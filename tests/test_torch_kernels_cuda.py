@@ -148,6 +148,45 @@ def test_rect_kernel_matches_plain_on_card(card, seed, n_rows, max_len, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_short,k", [
+    (77, 10),       # rows of every length in both classes
+    (0, 128),       # no short class; K above most rows' cells
+    (200, 1),       # every row one warp
+])
+def test_rect_kernel_under_any_plan_is_exact(card, n_short, k):
+    """Any plan gives the plain version's lanes: scores bit for bit and
+    ids on every finite lane, ties included (few distinct counts, one
+    partner row sum), with one counted launch per call."""
+    cnt, dst, rs, rows, starts, lens, observed = _slab(14, 200, 4096, 700)
+    rng = np.random.default_rng(15)
+    cnt = np.where(cnt != 0, rng.integers(1, 3, len(cnt)), 0).astype(np.int32)
+    rs[:] = 1 << 14
+    dev = [torch.from_numpy(a).to(card) for a in
+           (cnt, dst, rs, rows, starts, lens)]
+    before = rt.LAUNCHES
+    got = rt.rect_topk(*dev, observed, k, n_short)
+    assert rt.LAUNCHES == before + 1
+    want = rt.rect_topk_reference(*dev, observed, k)
+    gv, gi, wv, wi = (t.cpu().numpy() for t in (*got, *want))
+    fin = np.isfinite(wv)
+    np.testing.assert_array_equal(np.isfinite(gv), fin)
+    np.testing.assert_array_equal(gv[fin], wv[fin])
+    np.testing.assert_array_equal(gi[fin], wi[fin])
+
+
+@pytest.mark.cuda
+def test_score_kernel_ties_take_the_lowest_column_on_card(card):
+    n = 4099  # odd: every int16 row starts at another alignment
+    C = np.ones((n, n), dtype=np.int16)
+    rs = np.full(n, 3 * n, dtype=np.int32)
+    rows = np.arange(0, n, 97, dtype=np.int32)
+    dev = [torch.from_numpy(a).to(card) for a in (C, rs, rows)]
+    vals, idx = st.score_topk(*dev, float(n * n), 128)
+    assert (idx.cpu().numpy() == np.arange(128)).all()
+    assert torch.isfinite(vals).all()
+
+
+@pytest.mark.cuda
 def test_sparse_scorer_on_card_matches_cpu(card):
     """The sparse scorer on the card keeps the same canonical state as on
     the CPU and launches the rect kernel once per window."""

@@ -20,19 +20,27 @@
 // vocabulary cap) and takes every row length (no lane gate, no bucket
 // widths).
 //
-// Design: one block of 256 threads per row, walking the row in tiles of
-// 2048 cells (8 per thread, neighbouring threads on neighbouring cells),
-// each tile folded into the running top K by topk_block::merge_tile
-// (threshold skip, bitonic sort, merge by rank). Block b scores row
-// S - 1 - b: callers pass rows in ascending length buckets, so the
-// longest rows start first. Rows shorter than a tile leave most of the
-// block idle; most rows of a Zipf stream are that short.
+// Design: two size classes. The caller passes rows in ascending length
+// buckets and the number of rows, `n_short`, of the prefix that holds no
+// row over 1,024 cells (ops/rect_topk.py short_rows, host arithmetic on
+// the lengths it already holds, so no device sync):
+// - short rows (the prefix): one warp a row, eight rows a block, no block
+//   barrier on a row's path;
+// - long rows (the suffix): one block a row, its eight warps on
+//   interleaved cells, their lists merged once at the end.
+// Blocks of long rows come first in the grid, last row (longest bucket)
+// first, then the short rows, likewise. Both classes take any length, so
+// any n_short is exact; the classes change the work, never the result.
+// Both select with the per-warp queue, threshold, buffer and merge of
+// topk_block.cuh.
 //
 // Bound on this card: 12 bytes per live cell (cnt, dst, row_sums[dst])
 // plus the per-row meta and outputs, against about 8 float32 operations
 // per cell (4 log1pf, 4 divisions) at the float32 rate; the bytes bound
-// is the larger. Build without fast math and with -fmad=false so every
-// product and quotient rounds as in the plain PyTorch version.
+// is the larger. Most rows of a Zipf stream are a few dozen cells, so
+// per-row fixed work, not bytes, holds the kernel: the short class keeps
+// that to one warp's. Build without fast math and with -fmad=false so
+// every product and quotient rounds as in the plain PyTorch version.
 
 #include "topk_block.cuh"
 
@@ -40,6 +48,68 @@ namespace {
 
 using namespace topk_block;
 
+constexpr int kCellsAhead = 4;  // cells a thread loads before queueing
+
+// A scored row's slab region, or an empty row (all lanes (-inf, 0)) for a
+// row id outside row_sums or a region outside the slab: never a read out
+// of bounds.
+struct SlabRow {
+  const int32_t* crow;
+  const int32_t* drow;
+  int len;
+  bool valid;
+};
+
+__device__ __forceinline__ SlabRow slab_row(
+    const int32_t* cnt, const int32_t* dst, const int32_t* rows,
+    const int32_t* starts, const int32_t* lens, int s, int num_items,
+    long long cap) {
+  const int r = rows[s];
+  const int start = starts[s];
+  const int len = lens[s];
+  const bool valid = r >= 0 && r < num_items && start >= 0 && len >= 0 &&
+                     static_cast<long long>(start) + len <= cap;
+  const int off = valid ? start : 0;
+  return SlabRow{cnt + off, dst + off, valid ? len : 0, valid};
+}
+
+// Queue the nonzero cells of a row, `stride` threads walking it with this
+// thread at offset `t`; every lane of the warp calls.
+__device__ __forceinline__ void walk(WarpLists& w, Sel& sel,
+                                     const SlabRow& row, int t, int stride,
+                                     const RowScorer& sc, int top_k) {
+  const int hi = row.len;
+  for (int base = 0; base < hi; base += stride * kCellsAhead) {
+    int c[kCellsAhead], d[kCellsAhead];
+#pragma unroll
+    for (int u = 0; u < kCellsAhead; ++u) {
+      const int j = base + u * stride + t;
+      c[u] = j < hi ? __ldg(row.crow + j) : 0;
+      d[u] = j < hi ? __ldg(row.drow + j) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kCellsAhead; ++u) {
+      const int j = base + u * stride + t;
+      warp_push(w, sel, c[u] != 0, j, c[u], d[u], sc, top_k);
+    }
+  }
+}
+
+// Write a finished list: scores, and the partner id of each chosen slab
+// position (0 for an empty lane).
+__device__ __forceinline__ void write_row(const float* lv, const int* lc,
+                                          const SlabRow& row, int s, int i0,
+                                          int stride, int top_k,
+                                          float* out_vals, int32_t* out_idx) {
+  for (int i = i0; i < top_k; i += stride) {
+    const size_t o = static_cast<size_t>(s) * top_k + i;
+    out_vals[o] = lv[i];
+    out_idx[o] = lc[i] == kNoKey ? 0 : row.drow[lc[i]];
+  }
+}
+
+// Blocks [0, num_rows - n_short): one long row each; blocks after them:
+// eight short rows each, one a warp.
 __global__ void __launch_bounds__(kThreads)
 rect_topk_kernel(const int32_t* __restrict__ cnt,
                  const int32_t* __restrict__ dst,
@@ -48,52 +118,47 @@ rect_topk_kernel(const int32_t* __restrict__ cnt,
                  const int32_t* __restrict__ starts,
                  const int32_t* __restrict__ lens, int num_rows,
                  int num_items, long long cap, float observed, int top_k,
-                 float* __restrict__ out_vals,
+                 int n_short, float* __restrict__ out_vals,
                  int32_t* __restrict__ out_idx) {
-  __shared__ Shared sm;
+  __shared__ BlockLists sm;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_long = num_rows - n_short;
+  WarpLists& w = sm.w[warp];
+  Sel sel;
+
+  if (static_cast<int>(blockIdx.x) >= n_long) {  // short rows
+    const int idx = (static_cast<int>(blockIdx.x) - n_long) * kWarps + warp;
+    if (idx >= n_short) return;
+    const int s = n_short - 1 - idx;
+    warp_init(w, sel, top_k);
+    const SlabRow row = slab_row(cnt, dst, rows, starts, lens, s, num_items,
+                                 cap);
+    if (row.valid) {
+      const RowScorer sc{static_cast<float>(row_sums[rows[s]]), observed,
+                         row_sums, num_items};
+      walk(w, sel, row, lane, 32, sc, top_k);
+      warp_finish(w, sel, sc, top_k);
+    }
+    write_row(w.run_v[sel.cur], w.run_c[sel.cur], row, s, lane, 32, top_k,
+              out_vals, out_idx);
+    return;
+  }
 
   const int s = num_rows - 1 - static_cast<int>(blockIdx.x);
-  const int tid = threadIdx.x;
-  const int r = rows[s];
-  const int start = starts[s];
-  const int len = lens[s];
-  // A row id outside row_sums or a region outside the slab yields an
-  // empty row (all lanes (-inf, 0)), never a read out of bounds.
-  const bool valid_row = r >= 0 && r < num_items && start >= 0 && len >= 0 &&
-                         static_cast<long long>(start) + len <= cap;
-  const int32_t* crow = cnt + (valid_row ? start : 0);
-  const int32_t* drow = dst + (valid_row ? start : 0);
-  init(sm);
-
-  if (valid_row) {
-    const float rsi = static_cast<float>(row_sums[r]);
-    for (int base = 0; base < len; base += kTile) {
-      float v[kPerThread];
-#pragma unroll
-      for (int p = 0; p < kPerThread; ++p) {
-        const int j = base + p * kThreads + tid;
-        float sc = -INFINITY;
-        if (j < len) {
-          const int32_t k11 = crow[j];
-          if (k11 != 0) {
-            const int32_t d = drow[j];
-            const int32_t rsj = (d >= 0 && d < num_items) ? row_sums[d] : 0;
-            sc = cell_score(static_cast<float>(k11), rsi,
-                            static_cast<float>(rsj), observed);
-          }
-        }
-        v[p] = sc;
-      }
-      merge_tile(sm, v, base, top_k);
-    }
+  warp_init(w, sel, top_k);
+  const SlabRow row = slab_row(cnt, dst, rows, starts, lens, s, num_items,
+                               cap);
+  if (row.valid) {
+    const RowScorer sc{static_cast<float>(row_sums[rows[s]]), observed,
+                       row_sums, num_items};
+    walk(w, sel, row, tid, kThreads, sc, top_k);
+    warp_finish(w, sel, sc, top_k);
   }
-
-  for (int i = tid; i < top_k; i += kThreads) {
-    const size_t o = static_cast<size_t>(s) * top_k + i;
-    const int key = sm.run_c[i];
-    out_vals[o] = sm.run_v[i];
-    out_idx[o] = key == kNoKey ? 0 : drow[key];
-  }
+  const int cur = block_merge(sm, sel, top_k);
+  write_row(sm.w[0].run_v[cur], sm.w[0].run_c[cur], row, s, tid, kThreads,
+            top_k, out_vals, out_idx);
 }
 
 }  // namespace
@@ -101,23 +166,23 @@ rect_topk_kernel(const int32_t* __restrict__ cnt,
 extern "C" {
 
 // Launches the kernel on `stream` for `num_rows` rows of a slab of `cap`
-// cells over `num_items` row sums. Returns the CUDA error code of the
-// launch (0 = launched).
+// cells over `num_items` row sums, the first `n_short` of them one warp
+// each. Returns the CUDA error code of the launch (0 = launched).
 int rect_topk_launch(const int32_t* cnt, const int32_t* dst,
                      const int32_t* row_sums, const int32_t* rows,
                      const int32_t* starts, const int32_t* lens,
                      int num_rows, int num_items, long long cap,
-                     float observed, int top_k, float* out_vals,
+                     float observed, int top_k, int n_short, float* out_vals,
                      int32_t* out_idx, void* stream) {
   if (top_k < 1 || top_k > kMaxK || num_rows < 0 || num_items < 0 ||
-      cap < 0) {
+      cap < 0 || n_short < 0 || n_short > num_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rows == 0) return 0;
-  rect_topk_kernel<<<num_rows, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = num_rows - n_short + (n_short + kWarps - 1) / kWarps;
+  rect_topk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       cnt, dst, row_sums, rows, starts, lens, num_rows, num_items, cap,
-      observed, top_k, out_vals, out_idx);
+      observed, top_k, n_short, out_vals, out_idx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,23 +10,45 @@
 // descending, the lowest column winning among equal scores (lax.top_k's
 // rule).
 //
-// Design: one block per scored row, reading row rows[s] of C itself (no
-// pre-gathered [S, I] copy) and carrying column ids as int32 (no f32-id
-// vocabulary cap). The block walks the row in tiles of 2048 columns; each
-// thread scores 8 columns into registers, and topk_block::merge_tile
-// folds the tile into the running top K in shared memory (threshold
-// skip, bitonic sort, merge by rank; topk_block.cuh).
+// Design: one block of eight warps per scored row, reading row rows[s] of
+// C itself (no pre-gathered [S, I] copy) and carrying column ids as int32
+// (no f32-id vocabulary cap).
+// - Loads: the row's 16-byte-aligned body is read as int4 (4 int32 or
+//   8 int16 cells a load), neighbouring threads on neighbouring vectors,
+//   and each thread loads its next vector before it scores the current
+//   one, so loads stay in flight while the warps select. The unaligned
+//   head and tail (under 16 bytes each) are read one cell a lane by
+//   warp 0.
+// - Work: only nonzero cells are scored. Each warp queues them with a
+//   ballot and scores 32 at a time, one a lane (no lane computes the LLR
+//   of a zero cell), reading row_sums[j] (80 KB at I = 20,000, hot in L1
+//   and L2) for the queued cells only.
+// - Selection: each warp keeps its own running top K behind a register
+//   threshold on (score, column) and merges a candidate buffer into it
+//   by rank; the eight lists are merged once per row (topk_block.cuh).
+//   No block barrier runs while the row is read.
 //
-// Bound on this card: the bytes of the S rows of C (each read once);
-// in practice the four IEEE log1pf and four IEEE divisions per cell
-// dominate. Build without fast math and with -fmad=false so every
-// product and quotient rounds as in the plain PyTorch version.
+// Bound on this card: the bytes of the S rows of C (each read once); the
+// four IEEE log1pf and four IEEE divisions per nonzero cell cost far more
+// instructions than the 8 operations the bound charges, so a row with
+// many nonzero cells is held by them. Build without fast math and with
+// -fmad=false so every product and quotient rounds as in the plain
+// PyTorch version.
 
 #include "topk_block.cuh"
 
 namespace {
 
 using namespace topk_block;
+
+// Cell q of a 16-byte vector of CountT cells (little-endian).
+template <typename CountT>
+__device__ __forceinline__ int cell_at(const int4& v, int q) {
+  const int word = sizeof(CountT) == 4 ? q : q >> 1;
+  const int x = word == 0 ? v.x : word == 1 ? v.y : word == 2 ? v.z : v.w;
+  if (sizeof(CountT) == 4) return x;
+  return (q & 1) ? (x >> 16) : static_cast<int>(static_cast<int16_t>(x));
+}
 
 template <typename CountT>
 __global__ void __launch_bounds__(kThreads)
@@ -35,42 +57,58 @@ score_topk_kernel(const CountT* __restrict__ C,
                   const int32_t* __restrict__ rows, int num_items,
                   float observed, int top_k, float* __restrict__ out_vals,
                   int32_t* __restrict__ out_idx) {
-  __shared__ Shared sm;
+  __shared__ BlockLists sm;
+  constexpr int kVec = 16 / sizeof(CountT);  // cells per int4
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  WarpLists& w = sm.w[warp];
+  Sel sel;
+  warp_init(w, sel, top_k);
   const int r = rows[s];
   // A row id outside C yields an empty row (all lanes -inf), never a
   // read out of bounds.
-  const bool valid_row = r >= 0 && r < num_items;
-  init(sm);
-
-  if (valid_row) {
+  if (r >= 0 && r < num_items) {
     const CountT* crow = C + static_cast<size_t>(r) * num_items;
-    const float rsi = static_cast<float>(row_sums[r]);
-    for (int base = 0; base < num_items; base += kTile) {
-      float v[kPerThread];
-#pragma unroll
-      for (int p = 0; p < kPerThread; ++p) {
-        const int j = base + p * kThreads + tid;
-        float sc = -INFINITY;
-        if (j < num_items) {
-          const CountT cnt = crow[j];
-          if (cnt != 0) {
-            sc = cell_score(static_cast<float>(cnt), rsi,
-                            static_cast<float>(row_sums[j]), observed);
-          }
-        }
-        v[p] = sc;
-      }
-      merge_tile(sm, v, base, top_k);
+    const RowScorer sc{static_cast<float>(row_sums[r]), observed, row_sums,
+                       num_items};
+    const int mis = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(crow) & 15) / sizeof(CountT));
+    const int head = min(mis ? kVec - mis : 0, num_items);
+    const int nvec = (num_items - head) / kVec;
+    const int body_end = head + nvec * kVec;
+    if (warp == 0) {  // head and tail: fewer than 2 * kVec cells
+      const int n_edge = head + (num_items - body_end);
+      const int j = lane < head ? lane : body_end + (lane - head);
+      const int cnt = lane < n_edge ? static_cast<int>(crow[j]) : 0;
+      warp_push(w, sel, cnt != 0, j, cnt, j, sc, top_k);
     }
+    const int4* body = reinterpret_cast<const int4*>(crow + head);
+    int4 next = tid < nvec ? __ldcs(body + tid) : make_int4(0, 0, 0, 0);
+    for (int b = 0; b < nvec; b += kThreads) {
+      const int4 cur = next;
+      const int t = b + kThreads + tid;
+      next = t < nvec ? __ldcs(body + t) : make_int4(0, 0, 0, 0);
+      const int j0 = head + (b + tid) * kVec;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        const int cnt = cell_at<CountT>(cur, q);
+        // Lanes past the body hold zeros and queue nothing.
+        warp_push(w, sel, cnt != 0, j0 + q, cnt, j0 + q, sc, top_k);
+      }
+    }
+    warp_finish(w, sel, sc, top_k);
   }
 
+  const int cur = block_merge(sm, sel, top_k);
+  const float* fv = sm.w[0].run_v[cur];
+  const int* fc = sm.w[0].run_c[cur];
   for (int i = tid; i < top_k; i += kThreads) {
     const size_t o = static_cast<size_t>(s) * top_k + i;
-    out_vals[o] = sm.run_v[i];
-    out_idx[o] = sm.run_c[i] == kNoKey ? 0 : sm.run_c[i];
+    out_vals[o] = fv[i];
+    out_idx[o] = fc[i] == kNoKey ? 0 : fc[i];
   }
 }
 

@@ -1,19 +1,34 @@
 // Shared device code of the port's LLR + streaming top-K kernels
 // (score_topk.cu, rect_topk.cu): the float32 LLR of one contingency cell
-// and the block-wide merge of one tile of scores into a running top K.
+// and warp-level top-K selection.
 //
 // The LLR is the stable log1p form of ops/llr.py, term for term. Build
 // without fast math and with -fmad=false so every product and quotient
 // rounds as in the plain PyTorch versions.
 //
-// The running top K lives in shared memory, ordered by (score desc,
-// key asc): a key is a column (dense kernel) or a slab position (rect
-// kernel), so the lowest key wins among equal scores, as lax.top_k keeps
-// the lowest index. A tile is merged only when its max beats the running
-// K-th score (the TPU kernels' threshold skip); the merge keeps only
-// candidates strictly above that score (an equal score from a later key
-// always loses to the earlier one), sorts them bitonically, and merges
-// the two sorted lists by rank.
+// Selection order: (score desc, key asc), where a key is a column (dense
+// kernel) or a slab position (rect kernel), so the lowest key wins among
+// equal scores, as lax.top_k keeps the lowest index. A cell enters only
+// when its score is above -inf (zero counts score -inf; NaN never
+// enters) and it beats the running K-th entry on (score, key): warps see
+// keys in no common order, so an equal score with a lower key must still
+// enter. Any exact selection under this total order gives the plain
+// version's lanes bit for bit.
+//
+// Each warp keeps its own running top K (K <= kMaxK) in shared memory,
+// with no block barrier on its path:
+// - nonzero cells are appended to a per-warp queue with __ballot_sync /
+//   __popc and scored 32 at a time, one a lane, so no lane computes an
+//   LLR for a zero cell (warp_push, warp_drain);
+// - each score is filtered against the warp-uniform K-th entry held in
+//   registers; survivors are appended to a per-warp candidate buffer the
+//   same way (warp_offer);
+// - when 32 or more wait, the warp sorts the buffer (rank by counting)
+//   and merges it into the running list by rank (binary searches), into
+//   the other half of a ping-pong pair (warp_flush). This is the
+//   WarpSelect shape.
+// A block that scores one row with all its warps merges their lists once
+// at the end, pairwise in three levels (block_merge).
 
 #pragma once
 
@@ -24,10 +39,11 @@
 namespace topk_block {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kTile = kThreads * kPerThread;  // keys per tile
-constexpr int kMaxK = 128;                    // largest top_k carried
-constexpr int kNoKey = 0x7fffffff;            // key of an empty lane
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxK = 128;          // largest top_k carried
+constexpr int kNoKey = 0x7fffffff;  // key of an empty lane
+constexpr int kBuf = 64;            // candidate buffer, flushed at 32
+constexpr int kQueue = 64;          // nonzero cells waiting, scored at 32
 
 // (av, ac) ranks ahead of (bv, bc): higher score, then lower key.
 __device__ __forceinline__ bool beats(float av, int ac, float bv, int bc) {
@@ -63,131 +79,244 @@ __device__ __forceinline__ float cell_score(float k11, float rsi, float rsj,
   return out < 0.0f ? 0.0f : out;  // NaN passes through, as jnp.maximum
 }
 
-struct Shared {
-  float cand_v[kTile];
-  int cand_c[kTile];
-  float run_v[kMaxK];
-  int run_c[kMaxK];
-  float new_v[kMaxK];
-  int new_c[kMaxK];
-  float warp_max[kThreads / 32];
-  int n_cand;
+// What a cell's score needs besides its count and partner.
+struct RowScorer {
+  float rsi;            // the scored row's own sum
+  float observed;
+  const int32_t* row_sums;
+  int num_items;
 };
 
+// One warp's running top K (two halves, ping-pong), candidate buffer,
+// sorted-buffer scratch and queue of nonzero cells.
+struct WarpLists {
+  float run_v[2][kMaxK];
+  int run_c[2][kMaxK];
+  float buf_v[kBuf];
+  int buf_c[kBuf];
+  float srt_v[kBuf];
+  int srt_c[kBuf];
+  int q_key[kQueue];
+  int q_cnt[kQueue];
+  int q_dst[kQueue];
+};
+
+// A block's eight warps' lists, and which half holds each running list
+// while block_merge runs.
+struct BlockLists {
+  WarpLists w[kWarps];
+  int cur[kWarps];
+};
+
+// A warp's selection state, in registers, the same in every lane.
+struct Sel {
+  int cur;      // half of run_* holding the running top K
+  int n;        // candidates in buf
+  int q;        // cells in the queue
+  float thr_v;  // the running K-th entry
+  int thr_c;
+};
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
 // Empty running top K: every lane (-inf, kNoKey).
-__device__ __forceinline__ void init(Shared& sm) {
-  for (int k = threadIdx.x; k < kMaxK; k += kThreads) {
-    sm.run_v[k] = -INFINITY;
-    sm.run_c[k] = kNoKey;
+__device__ __forceinline__ void warp_init(WarpLists& w, Sel& s, int top_k) {
+  for (int i = lane_id(); i < top_k; i += 32) {
+    w.run_v[0][i] = -INFINITY;
+    w.run_c[0][i] = kNoKey;
   }
-  __syncthreads();
+  s.cur = 0;
+  s.n = 0;
+  s.q = 0;
+  s.thr_v = -INFINITY;
+  s.thr_c = kNoKey;
+  __syncwarp();
 }
 
-// Merge one tile into the running top K. Thread `tid` holds in v[p] the
-// score of key base + p * kThreads + tid (-inf for no candidate). Every
-// thread of the block calls it. Inlined, so v stays in registers.
-__device__ __forceinline__ void merge_tile(Shared& sm, const float (&v)[kPerThread],
-                           int base, int top_k) {
-  const int tid = threadIdx.x;
-  float local_max = -INFINITY;
-#pragma unroll
-  for (int p = 0; p < kPerThread; ++p) local_max = fmaxf(local_max, v[p]);
-  for (int off = 16; off > 0; off >>= 1) {
-    local_max = fmaxf(local_max, __shfl_xor_sync(0xffffffffu, local_max, off));
-  }
-  if ((tid & 31) == 0) sm.warp_max[tid >> 5] = local_max;
-  if (tid == 0) sm.n_cand = 0;
-  __syncthreads();
-  float tile_max = sm.warp_max[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) {
-    tile_max = fmaxf(tile_max, sm.warp_max[w]);
-  }
-  const float thresh = sm.run_v[top_k - 1];
-  if (!(tile_max > thresh)) {  // block-uniform: skip the merge
-    __syncthreads();
-    return;
-  }
+// May (v, key) enter the running top K? Above -inf (NaN is not), and
+// ahead of the K-th entry on (score, key).
+__device__ __forceinline__ bool enters(const Sel& s, float v, int key) {
+  return v > -INFINITY && beats(v, key, s.thr_v, s.thr_c);
+}
 
-  // Compact the candidates that can enter the top K.
+// How many of the first n entries of a sorted list beat (v, c).
+__device__ __forceinline__ int rank_in(const float* lv, const int* lc, int n,
+                                       float v, int c) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (beats(lv[mid], lc[mid], v, c)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Merge the candidate buffer into the running top K. Keys are distinct
+// across buffer and list, except the empty lanes' (-inf, kNoKey), which
+// every candidate beats; so the ranks are a permutation of the union.
+__device__ __noinline__ Sel warp_flush(WarpLists& w, Sel s, int top_k) {
+  __syncwarp();
+  const int lane = lane_id();
+  const int m = s.n;
+  const float* rv = w.run_v[s.cur];
+  const int* rc = w.run_c[s.cur];
+  float* nv = w.run_v[s.cur ^ 1];
+  int* nc = w.run_c[s.cur ^ 1];
+  float bv[2];
+  int bc[2], br[2];
 #pragma unroll
-  for (int p = 0; p < kPerThread; ++p) {
-    if (v[p] > thresh) {
-      const int pos = atomicAdd(&sm.n_cand, 1);
-      sm.cand_v[pos] = v[p];
-      sm.cand_c[pos] = base + p * kThreads + tid;
+  for (int h = 0; h < 2; ++h) {
+    const int i = lane + 32 * h;
+    br[h] = top_k;
+    bv[h] = -INFINITY;
+    bc[h] = kNoKey;
+    if (i < m) {
+      bv[h] = w.buf_v[i];
+      bc[h] = w.buf_c[i];
+      int r = 0;
+      for (int t = 0; t < m; ++t) {
+        r += beats(w.buf_v[t], w.buf_c[t], bv[h], bc[h]) ? 1 : 0;
+      }
+      w.srt_v[r] = bv[h];
+      w.srt_c[r] = bc[h];
+      br[h] = r + rank_in(rv, rc, top_k, bv[h], bc[h]);
     }
   }
-  __syncthreads();
-  const int n = sm.n_cand;
-  int span = 1;
-  while (span < n) span <<= 1;
-  for (int i = n + tid; i < span; i += kThreads) {
-    sm.cand_v[i] = -INFINITY;
-    sm.cand_c[i] = kNoKey;
+  __syncwarp();
+  for (int i = lane; i < top_k; i += 32) {
+    const float v = rv[i];
+    const int c = rc[i];
+    const int r = i + rank_in(w.srt_v, w.srt_c, m, v, c);
+    if (r < top_k) {
+      nv[r] = v;
+      nc[r] = c;
+    }
   }
-  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (br[h] < top_k) {
+      nv[br[h]] = bv[h];
+      nc[br[h]] = bc[h];
+    }
+  }
+  __syncwarp();
+  s.cur ^= 1;
+  s.n = 0;
+  s.thr_v = nv[top_k - 1];
+  s.thr_c = nc[top_k - 1];
+  return s;
+}
 
-  // Bitonic sort of cand[0, span) into rank order (best first).
-  for (int k = 2; k <= span; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < span; i += kThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const float av = sm.cand_v[i], bv = sm.cand_v[ixj];
-          const int ac = sm.cand_c[i], bc = sm.cand_c[ixj];
-          const bool best_first = (i & k) == 0;
-          if (best_first ? beats(bv, bc, av, ac) : beats(av, ac, bv, bc)) {
-            sm.cand_v[i] = bv;
-            sm.cand_c[i] = bc;
-            sm.cand_v[ixj] = av;
-            sm.cand_c[ixj] = ac;
-          }
+// Every lane calls: the lanes with `want` append (v, key) to the
+// candidate buffer; 32 or more waiting are merged.
+__device__ __forceinline__ void warp_offer(WarpLists& w, Sel& s, bool want,
+                                           float v, int key, int top_k) {
+  const unsigned mask = __ballot_sync(0xffffffffu, want);
+  if (want) {
+    const int pos = s.n + __popc(mask & ((1u << lane_id()) - 1u));
+    w.buf_v[pos] = v;
+    w.buf_c[pos] = key;
+  }
+  s.n += __popc(mask);
+  if (s.n >= 32) s = warp_flush(w, s, top_k);
+}
+
+// Score the first n (<= 32) queued cells, one a lane, offer them, and
+// move the rest of the queue to its front.
+__device__ __forceinline__ void warp_drain(WarpLists& w, Sel& s, int n,
+                                           const RowScorer& sc, int top_k) {
+  __syncwarp();
+  const int lane = lane_id();
+  float v = -INFINITY;
+  int key = kNoKey;
+  if (lane < n) {
+    key = w.q_key[lane];
+    const int d = w.q_dst[lane];
+    const int32_t rsj =
+        (d >= 0 && d < sc.num_items) ? __ldg(sc.row_sums + d) : 0;
+    v = cell_score(static_cast<float>(w.q_cnt[lane]), sc.rsi,
+                   static_cast<float>(rsj), sc.observed);
+  }
+  const int rest = s.q - n;
+  int mk = 0, mc = 0, md = 0;
+  if (lane < rest) {
+    mk = w.q_key[n + lane];
+    mc = w.q_cnt[n + lane];
+    md = w.q_dst[n + lane];
+  }
+  __syncwarp();
+  if (lane < rest) {
+    w.q_key[lane] = mk;
+    w.q_cnt[lane] = mc;
+    w.q_dst[lane] = md;
+  }
+  s.q = rest;
+  warp_offer(w, s, lane < n && enters(s, v, key), v, key, top_k);
+}
+
+// Every lane calls: the lanes with `want` queue their cell (key, count,
+// partner id); 32 or more waiting are scored.
+__device__ __forceinline__ void warp_push(WarpLists& w, Sel& s, bool want,
+                                          int key, int cnt, int dst,
+                                          const RowScorer& sc, int top_k) {
+  const unsigned mask = __ballot_sync(0xffffffffu, want);
+  if (want) {
+    const int pos = s.q + __popc(mask & ((1u << lane_id()) - 1u));
+    w.q_key[pos] = key;
+    w.q_cnt[pos] = cnt;
+    w.q_dst[pos] = dst;
+  }
+  s.q += __popc(mask);
+  if (s.q >= 32) warp_drain(w, s, 32, sc, top_k);
+}
+
+// Score what is queued and merge what is buffered: the warp's running
+// top K is then final.
+__device__ __forceinline__ void warp_finish(WarpLists& w, Sel& s,
+                                           const RowScorer& sc, int top_k) {
+  if (s.q > 0) warp_drain(w, s, s.q, sc, top_k);
+  if (s.n > 0) s = warp_flush(w, s, top_k);
+}
+
+// Every thread of the block calls, after each warp's warp_finish: merge
+// the eight warps' lists pairwise (three levels, one barrier each) into
+// warp 0's. Returns the half of sm.w[0].run_* that holds the result.
+// Keys are distinct across warps except the empty lanes, whose equal
+// (-inf, kNoKey) entries may land on one slot with the same bytes.
+__device__ __forceinline__ int block_merge(BlockLists& sm, const Sel& s,
+                                           int top_k) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = lane_id();
+  if (lane == 0) sm.cur[warp] = s.cur;
+  __syncthreads();
+  for (int step = 1; step < kWarps; step <<= 1) {
+    if ((warp & (2 * step - 1)) == 0) {
+      const int ca = sm.cur[warp];
+      const int cb = sm.cur[warp + step];
+      const float* av = sm.w[warp].run_v[ca];
+      const int* ac = sm.w[warp].run_c[ca];
+      const float* bv = sm.w[warp + step].run_v[cb];
+      const int* bc = sm.w[warp + step].run_c[cb];
+      float* ov = sm.w[warp].run_v[ca ^ 1];
+      int* oc = sm.w[warp].run_c[ca ^ 1];
+      for (int i = lane; i < top_k; i += 32) {
+        const int ra = i + rank_in(bv, bc, top_k, av[i], ac[i]);
+        if (ra < top_k) {
+          ov[ra] = av[i];
+          oc[ra] = ac[i];
+        }
+        const int rb = i + rank_in(av, ac, top_k, bv[i], bc[i]);
+        if (rb < top_k) {
+          ov[rb] = bv[i];
+          oc[rb] = bc[i];
         }
       }
-      __syncthreads();
+      __syncwarp();
+      if (lane == 0) sm.cur[warp] = ca ^ 1;
     }
+    __syncthreads();
   }
-
-  // Merge the two sorted lists by rank: an element's place in the union
-  // is its own index plus the number of elements of the other list that
-  // beat it. Keys never tie across the lists (candidate keys are new;
-  // empty running lanes hold -inf).
-  const int m = n < top_k ? n : top_k;
-  for (int i = tid; i < top_k; i += kThreads) {
-    const float rv = sm.run_v[i];
-    const int rc = sm.run_c[i];
-    int lo = 0, hi = m;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (beats(sm.cand_v[mid], sm.cand_c[mid], rv, rc)) lo = mid + 1;
-      else hi = mid;
-    }
-    if (i + lo < top_k) {
-      sm.new_v[i + lo] = rv;
-      sm.new_c[i + lo] = rc;
-    }
-  }
-  for (int j = tid; j < m; j += kThreads) {
-    const float cv = sm.cand_v[j];
-    const int cc = sm.cand_c[j];
-    int lo = 0, hi = top_k;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (beats(sm.run_v[mid], sm.run_c[mid], cv, cc)) lo = mid + 1;
-      else hi = mid;
-    }
-    if (j + lo < top_k) {
-      sm.new_v[j + lo] = cv;
-      sm.new_c[j + lo] = cc;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < top_k; i += kThreads) {
-    sm.run_v[i] = sm.new_v[i];
-    sm.run_c[i] = sm.new_c[i];
-  }
-  __syncthreads();
+  return sm.cur[0];
 }
 
 }  // namespace topk_block

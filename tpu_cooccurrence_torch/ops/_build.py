@@ -48,11 +48,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "rect_topk": {
         # cnt, dst, row_sums, rows, starts, lens, num_rows, num_items,
-        # cap, observed, top_k, out_vals, out_idx, stream
+        # cap, observed, top_k, n_short, out_vals, out_idx, stream
         "rect_topk_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                              _c_void_p, _c_void_p, _c_int, _c_int,
-                             _c_longlong, _c_float, _c_int, _c_void_p,
-                             _c_void_p, _c_void_p],
+                             _c_longlong, _c_float, _c_int, _c_int,
+                             _c_void_p, _c_void_p, _c_void_p],
         "rect_topk_error_string": [_c_int],
     },
     "expand_scatter": {

@@ -16,7 +16,9 @@ slot-ordered rectangle). Lanes past a row's live cells are ``(-inf, 0)``.
 :func:`rect_topk` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel (``csrc/rect_topk.cu``), which takes every row length
 as it is, or raises; on a CPU tensor it runs :func:`rect_topk_reference`,
-the plain PyTorch version. :data:`LAUNCHES` counts kernel launches.
+the plain PyTorch version. :data:`LAUNCHES` counts wrapper calls that
+launched. :func:`short_rows` splits a launch's rows into the kernel's two
+size classes (a warp per short row, a block per long row) on the host.
 
 The plain version keeps the reference package's length buckets: rows are
 scored in ``[S, R]`` rectangles, ``R = min_r * 4^b`` the smallest width
@@ -29,6 +31,7 @@ its ``--score-ladder``), so the bucket helpers live here.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,6 +48,11 @@ SCORE_BUDGET = 1 << 24
 #: Bucket ladder of the plain version's rectangles (the reference
 #: package's default).
 PLAIN_LADDER = 4
+#: Longest row the kernel scores with one warp; longer rows take a block.
+#: A bucket boundary at ladders 2 and 4 (the default) when the narrowest
+#: rectangle is 16 lanes, so in bucket order the short rows are a prefix.
+#: Chosen by ``tune_topk.py`` on config 4's largest launch (PERF.md).
+SHORT_MAX = 1024
 
 
 def ladder_bits(ladder: int) -> int:
@@ -118,6 +126,17 @@ def score_rect(cnt, dst, row_sums, rows, starts, lens, observed,
     return vals, torch.gather(ds, 1, pos.long())
 
 
+def short_rows(lens: np.ndarray, short_max: int = SHORT_MAX) -> int:
+    """The kernel's launch plan for rows of ``lens`` cells, in the order
+    given (the bucket order): the length of the longest prefix of rows of
+    at most ``short_max`` cells, which the kernel scores one warp a row;
+    every later row takes a block. Host arithmetic only, no device sync.
+    Any count in ``[0, len(lens)]`` is exact: both classes take any
+    length, so the split changes the work, never the result."""
+    over = np.flatnonzero(np.asarray(lens) > short_max)
+    return int(over[0]) if len(over) else len(lens)
+
+
 def _check(cnt, dst, row_sums, rows, starts, lens, top_k: int) -> None:
     for name, t in (("cnt", cnt), ("dst", dst), ("row_sums", row_sums),
                     ("rows", rows), ("starts", starts), ("lens", lens)):
@@ -168,7 +187,7 @@ def rect_topk_reference(cnt, dst, row_sums, rows, starts, lens, observed,
 
 
 def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
-              top_k: int):
+              top_k: int, n_short: Optional[int] = None):
     """Top-K LLR scores of sparse rows: the CUDA kernel on a card,
     :func:`rect_topk_reference` for CPU tensors (and only there).
 
@@ -176,10 +195,18 @@ def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
     row_sums  [I]   int32
     rows      [S]   int32 row ids; starts, lens [S] int32 slab regions
     observed        total observed co-occurrences (fed as float32)
-    Returns ``(vals [S, K] float32, ids [S, K] int32)``.
+    n_short         :func:`short_rows` of ``lens``, the rows the kernel
+                    scores one warp each (the plain version ignores it);
+                    without it the kernel's wrapper reads ``lens`` back
+                    from the card to count them
+    Returns ``(vals [S, K] float32, ids [S, K] int32)``. One call counts
+    one launch in :data:`LAUNCHES`.
     """
     global LAUNCHES
     _check(cnt, dst, row_sums, rows, starts, lens, top_k)
+    if n_short is not None and not 0 <= n_short <= rows.shape[0]:
+        raise ValueError(f"rect_topk n_short {n_short} outside "
+                         f"[0, {rows.shape[0]}]")
     if cnt.device.type == "cpu":
         return rect_topk_reference(cnt, dst, row_sums, rows, starts, lens,
                                    observed, top_k)
@@ -190,10 +217,12 @@ def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
     tensors = (cnt, dst, row_sums, rows, starts, lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rect_topk needs contiguous inputs")
+    s = rows.shape[0]
+    if n_short is None:
+        n_short = short_rows(lens.cpu().numpy())
     from ._build import load
 
     lib = load("rect_topk")
-    s = rows.shape[0]
     vals = torch.empty((s, top_k), dtype=torch.float32, device=cnt.device)
     ids = torch.empty((s, top_k), dtype=torch.int32, device=cnt.device)
     with torch.cuda.device(cnt.device):
@@ -201,7 +230,7 @@ def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
         err = lib.rect_topk_launch(
             *(t.data_ptr() for t in tensors), s, row_sums.shape[0],
             cnt.shape[0], ctypes.c_float(np.float32(observed)), top_k,
-            vals.data_ptr(), ids.data_ptr(), stream)
+            n_short, vals.data_ptr(), ids.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"rect_topk kernel launch failed: "

@@ -50,7 +50,7 @@ from ..ops.aggregate import (aggregate_window_coo, distinct_sorted,
                              merge_sorted_insert, narrow_deltas_int32)
 from ..ops.device_scorer import DeferredResultsTable
 from ..ops.rect_topk import (MAX_TOP_K, ladder_bits, min_rect_width,
-                             rect_topk, score_buckets)
+                             rect_topk, score_buckets, short_rows)
 from ..sampling.reservoir import PairDeltaBatch, _ragged_arange
 from .results import TopKBatch
 from .wire import checked_narrow
@@ -823,7 +823,8 @@ class SparseDeviceScorer:
                                          lens[order]]).astype(np.int32))
         vals, ids = rect_topk(self.cnt, self.dst, self.row_sums, meta[0],
                               meta[1], meta[2],
-                              float(np.float32(self.observed)), self.top_k)
+                              float(np.float32(self.observed)), self.top_k,
+                              short_rows(lens[order]))
         if self.defer_results:
             self._results.scatter(meta[0], vals, ids)
             self._results.mark(rows)
