@@ -43,17 +43,24 @@ fatal on failure:
 8. Expand kernel vs plain on the card: ``apply_baskets`` (kernel) against
    ``apply_baskets_reference`` on copies of the same ``C`` and row sums,
    exactly equal, on append ops, replacement pairs, len 0 / len W /
-   skip >= len, 10,000 ops on one new item, int16 cells driven past the
-   short range, and ids near I - 1 at I = 61,440 int16 (cell offsets past
-   2^31); each case timed.
+   skip >= len, 10,000 ops on one new item, 200,000 one-cell ops,
+   Zipf-hot partners at the main path's shape, int16 cells driven past
+   the short range, the last cell of an odd int16 ``C`` and the first of
+   one that starts off a 4-byte boundary (guard cells untouched), and
+   ids near I - 1 at I = 61,440 int16 (cell offsets past 2^31); each
+   case timed, kernel and plain.
 9. Dense fused window: phase 4's bench workload with ``--fused-window
    on`` on cuda, the expand and score counts reset just before and read
    just after: every pair-carrying window fused, none chained; state,
    counters and rows exactly equal to phase 4's chained run; the busy
    share from a profiled second run. Then phase 3's stream with user cut
    3 (replacement ops) fused on cuda against fused on cpu, int32 and
-   int16. Last, the run's largest expand launch replayed against the
+   int16. Then the run's largest expand launch replayed against the
    plain version and timed beside its bound and the chained scatter.
+   Last, the bench workload at ``--count-dtype int16``, fused (counts
+   reset just before, read just after) against chained on cuda: state
+   and counters exactly equal, rows in ``topk_parity``; its wall,
+   pairs/s, launches and largest launch against its bound.
 
 The last lines: the card, a ``{"kernels": [...]}`` JSON line naming all
 three kernels and ``{"ok": true, "device": {...}}``.
@@ -841,8 +848,9 @@ class ExpandParity:
 
     def compare(self, name, C, rs, block, reps=20):
         """``apply_baskets`` and ``apply_baskets_reference`` on two copies
-        of ``C``/``rs`` (the inputs stay as they are); the kernel then
-        timed on the plain version's copy. Returns the kernel's results."""
+        of ``C``/``rs`` (the inputs stay as they are); the kernel and the
+        plain version then timed on the plain version's copy. Returns the
+        kernel's results."""
         import torch
 
         from tpu_cooccurrence_torch.ops.expand import (
@@ -860,20 +868,24 @@ class ExpandParity:
                   f"{int((kc != pc).sum())} C cells, "
                   f"{int((krs != prs).sum())} row sums")
         ms = _time_ms(lambda: apply_baskets(pc, prs, block), reps)
+        plain_ms = _time_ms(
+            lambda: apply_baskets_reference(pc, prs, block), 3)
         del pc, prs
         self.cases += 1
         print(f"  parity {name}: C and row sums exactly equal; kernel "
-              f"{ms:.4f} ms", flush=True)
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         return kc, krs
 
 
 def _basket_block(rng, n, w, num_items, id_base=0, replacements=False,
-                  hot_new=None, edges=False):
+                  hot_new=None, edges=False, zipf=False):
     """A packed ``[n, W + 4]`` block of seeded star ops on the card:
     partner ids in [id_base, num_items), garbage past each op's len.
     ``replacements``: ops in (+1, -1) pairs of full width with the same
     skip slot; ``edges``: len 0, len W and skip >= len ops among random
-    lens; ``hot_new``: every op on that one new item."""
+    lens; ``hot_new``: every op on that one new item; ``zipf``: random
+    lens, and new items and partners drawn Zipf 1.1 (the bench stream's
+    alpha), so the lowest ids recur in nearly every op."""
     import torch
 
     from tpu_cooccurrence_torch.ops.expand import pack_block
@@ -889,11 +901,17 @@ def _basket_block(rng, n, w, num_items, id_base=0, replacements=False,
         lens[::7], lens[1::7] = 0, w
         skips = np.where(rng.random(n) < 0.5, rng.integers(0, w + 3, n), -1)
         signs = np.where(rng.random(n) < 0.7, 1, -1)
+    elif zipf:
+        lens = rng.integers(1, w + 1, n)
     j = np.arange(w)[None, :]
-    baskets = np.where(j < lens[:, None],
-                       rng.integers(id_base, num_items, (n, w)),
+    if zipf:
+        draw = (rng.zipf(1.1, (n, w + 1)) - 1) % num_items
+        partners, hot_new = draw[:, :w], draw[:, w]
+    else:
+        partners = rng.integers(id_base, num_items, (n, w))
+    baskets = np.where(j < lens[:, None], partners,
                        rng.integers(-2**31, 2**31 - 1, (n, w)))
-    new = (np.full(n, hot_new) if hot_new is not None
+    new = (np.broadcast_to(hot_new, n) if hot_new is not None
            else rng.integers(id_base, num_items, n))
     block = pack_block(*(np.asarray(a).astype(np.int32) for a in
                          (new, baskets, lens, skips, signs)))
@@ -926,6 +944,18 @@ def phase_expand_kernel(parity: ExpandParity) -> None:
                        f"{str(dtype).split('.')[-1]}",
                        *state(4096, dtype),
                        _basket_block(rng, 10_000, 32, 4096, hot_new=17))
+    # One cell an op: each lane of a warp on another op.
+    for dtype in (torch.int32, torch.int16):
+        parity.compare(f"W1_200000_ops_I4096_{str(dtype).split('.')[-1]}",
+                       *state(4096, dtype),
+                       _basket_block(rng, 200_000, 1, 4096))
+    # The main path's shape with Zipf-hot partners: the lowest ids, whose
+    # row sums share a sector, recur in nearly every op.
+    for dtype in (torch.int32, torch.int16):
+        parity.compare(f"zipf_hot_partners_N8131_W71_I5000_"
+                       f"{str(dtype).split('.')[-1]}",
+                       *state(5000, dtype),
+                       _basket_block(rng, 8131, 71, 5000, zipf=True))
 
     # int16 wraparound: 40,000 ops add +1 to the cells (3, 5)/(5, 3) and
     # 40,000 add -1 to (7, 11)/(11, 7), each starting 7 from its limit.
@@ -939,10 +969,9 @@ def phase_expand_kernel(parity: ExpandParity) -> None:
     C = torch.zeros((64, 64), dtype=torch.int16)
     C[3, 5] = C[5, 3] = 32_760
     C[7, 11] = C[11, 7] = -32_760
-    # Every op CASes one of the same two words: few reps.
     kc, _ = parity.compare("int16_wraparound_80000_ops", C.to(dev),
                            torch.zeros(64, dtype=torch.int32, device=dev),
-                           block.to(dev), reps=3)
+                           block.to(dev))
     want_up, want_down = (int(np.int64(v).astype(np.int16))
                           for v in (32_760 + n, -32_760 - n))
     got = kc.cpu()
@@ -951,24 +980,33 @@ def phase_expand_kernel(parity: ExpandParity) -> None:
         _fail(f"int16 wraparound: got {got[3, 5]}, {got[7, 11]}, want "
               f"{want_up}, {want_down}")
 
-    # The last cell of an odd-sized int16 C, followed in its buffer by two
-    # guard cells: the 16-bit adds must leave the bytes past C alone.
+    # An odd-sized int16 C inside a buffer of guard cells: at offset 0 its
+    # last cell shares a 32-bit word with the guard after it; at offset 1
+    # (C starts 2 bytes past a 4-byte boundary) its first cell shares one
+    # with the guard before it. The adds must leave the guards alone.
     from tpu_cooccurrence_torch.ops.expand import apply_baskets
 
     odd, n = 4099, 64
-    buf = torch.full((odd * odd + 2,), 77, dtype=torch.int16, device=dev)
-    C = buf[:odd * odd].view(odd, odd)
-    C.zero_()
-    ops = (np.full(n, odd - 1), np.full((n, 1), odd - 1), np.ones(n),
-           np.full(n, -1), np.ones(n))
-    block = torch.from_numpy(pack_block(*(a.astype(np.int32) for a in ops)))
-    rs = torch.zeros(odd, dtype=torch.int32, device=dev)
-    parity.compare("last_cell_odd_I4099_int16", C, rs, block.to(dev))
-    apply_baskets(C, rs, block.to(dev))
-    if int(C[-1, -1]) != 2 * n or buf[odd * odd:].tolist() != [77, 77]:
-        _fail(f"odd int16 C: last cell {int(C[-1, -1])} (want {2 * n}), "
-              f"guard cells {buf[odd * odd:].tolist()} (want [77, 77])")
-    del buf, C, rs
+    for start, cells, name in (
+            (0, [odd - 1], "last_cell_odd_I4099_int16"),
+            (1, [0, odd - 1], "first_cell_unaligned_start_I4099_int16")):
+        buf = torch.full((odd * odd + 2,), 77, dtype=torch.int16, device=dev)
+        C = buf[start:start + odd * odd].view(odd, odd)
+        C.zero_()
+        ids = np.repeat(cells, n)
+        ops = (ids, ids[:, None], np.ones(len(ids)), np.full(len(ids), -1),
+               np.ones(len(ids)))
+        block = torch.from_numpy(
+            pack_block(*(a.astype(np.int32) for a in ops))).to(dev)
+        rs = torch.zeros(odd, dtype=torch.int32, device=dev)
+        parity.compare(name, C, rs, block)
+        apply_baskets(C, rs, block)
+        got = [int(C[c, c]) for c in cells]
+        guards = torch.cat([buf[:start], buf[start + odd * odd:]]).tolist()
+        if got != [2 * n] * len(cells) or guards != [77, 77]:
+            _fail(f"{name}: cells {got} (want {2 * n} each), guard cells "
+                  f"{guards} (want [77, 77])")
+        del buf, C, rs
 
     # Ids near I - 1 at the int16 vocabulary ceiling: cell offsets
     # new * I + p pass 2^31.
@@ -1041,7 +1079,15 @@ def _measure_expand(name, C, rs, block_host):
     delta_t = torch.from_numpy(delta.astype(np.int32)).to("cuda")
     library_ms = _time_ms(
         lambda: _apply_coo(Cs, rss, src_t, dst_t, delta_t), 20)
-    del Cs, rss
+    # The scatter's floor: index_add_ of the launch's expanded C cells,
+    # one atomic each, unfolded (the kernel's C atomics without the
+    # expansion or the row sums).
+    flat = torch.from_numpy(pairs.src.astype(np.int64) * C.shape[0]
+                            + pairs.dst).to("cuda")
+    ones = torch.from_numpy(pairs.delta).to(C.dtype).to("cuda")
+    Cflat = Cs.view(-1)
+    floor_ms = _time_ms(lambda: Cflat.index_add_(0, flat, ones), 20)
+    del Cs, rss, Cflat, flat, ones
     # Bound: the block read once, and each distinct 32-byte sector of C
     # and of the row sums that the launch touches read and written once
     # (64 bytes over HBM; repeated adds to one sector can stay in L2).
@@ -1058,8 +1104,9 @@ def _measure_expand(name, C, rs, block_host):
           f"{len(src)} folded cells in {c_sectors} C sectors, "
           f"{rs_sectors} row-sum sectors, {nbytes} bytes: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, chained _apply_coo "
-          f"yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)",
-          flush=True)
+          f"yardstick {library_ms:.4f} ms, index_add_ of the {len(pairs.src)} "
+          f"expanded C cells {floor_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes; {100 * bound_ms / ms:.1f}% of it reached)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by="bytes")
 
@@ -1084,22 +1131,22 @@ def _score_seconds_ms(job):
     return float(np.median(s)), float(np.sum(s))
 
 
-def phase_fused_main_path(parity: ExpandParity, card: str,
-                          chained_job) -> dict:
+def _counted_fused_run(dtype, card, users, items, ts):
+    """The bench workload fused on cuda at ``dtype``, the expand and score
+    counts and the dispatch gauges reset just before and read just after;
+    fails unless every pair-carrying window was fused and launched the
+    expand kernel. Returns the job, its seconds, its expand launches and
+    the host blocks it packed."""
     from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
     from tpu_cooccurrence_torch.ops import expand as ex
     from tpu_cooccurrence_torch.ops import score_topk as st
-    from tpu_cooccurrence_torch.ops.score_topk import topk_parity
 
-    print("phase 9: dense fused window (--fused-window on), bench "
-          "workload", flush=True)
-    users, items, ts = _bench_stream()
     blocks: list = []
     restore = _recording_blocks(blocks)
     try:
         _reset_dispatch_gauges()
         ex.LAUNCHES = st.LAUNCHES = 0
-        job, elapsed = _run_job("cuda", "int32", users, items, ts,
+        job, elapsed = _run_job("cuda", dtype, users, items, ts,
                                 num_items=20_000, fused_window="on")
         launches, score_launches = ex.LAUNCHES, st.LAUNCHES
         fused, chained = _dispatches()
@@ -1107,16 +1154,30 @@ def phase_fused_main_path(parity: ExpandParity, card: str,
         restore()
     pair_windows = sum(1 for w in job.step_timer.windows if w.pairs > 0)
     pairs = job.counters.get(OBSERVED_COOCCURRENCES)
-    print(f"  {card}: {elapsed:.3f} s, {pairs / elapsed:.1f} pairs/s, "
-          f"{job.windows_fired} windows ({pair_windows} with pairs), "
-          f"{launches} expand launches, {score_launches} score launches; "
-          f"dispatches fused {fused}, chained {chained}", flush=True)
+    print(f"  {card}: fused {dtype} {elapsed:.3f} s, {pairs} pairs, "
+          f"{pairs / elapsed:.1f} pairs/s, {job.windows_fired} windows "
+          f"({pair_windows} with pairs), {launches} expand launches, "
+          f"{score_launches} score launches; dispatches fused {fused}, "
+          f"chained {chained}", flush=True)
     if launches < pair_windows or launches <= 0:
-        _fail(f"the fused main path launched the expand kernel {launches} "
-              f"times for {pair_windows} pair-carrying windows")
+        _fail(f"{dtype}: the fused path launched the expand kernel "
+              f"{launches} times for {pair_windows} pair-carrying windows")
     if fused != pair_windows or chained != 0:
-        _fail(f"routing: {fused} fused and {chained} chained dispatches "
-              f"for {pair_windows} pair-carrying windows")
+        _fail(f"{dtype} routing: {fused} fused and {chained} chained "
+              f"dispatches for {pair_windows} pair-carrying windows")
+    return job, elapsed, launches, blocks
+
+
+def phase_fused_main_path(parity: ExpandParity, card: str,
+                          chained_job) -> dict:
+    from tpu_cooccurrence_torch.ops import expand as ex
+    from tpu_cooccurrence_torch.ops.score_topk import topk_parity
+
+    print("phase 9: dense fused window (--fused-window on), bench "
+          "workload", flush=True)
+    users, items, ts = _bench_stream()
+    job, elapsed, launches, blocks = _counted_fused_run(
+        "int32", card, users, items, ts)
     if job.counters.as_dict() != chained_job.counters.as_dict():
         _fail(f"counters differ from the chained run: {job.counters} vs "
               f"{chained_job.counters}")
@@ -1188,7 +1249,59 @@ def phase_fused_main_path(parity: ExpandParity, card: str,
                    torch.from_numpy(largest).to("cuda"), reps=5)
     m = _measure_expand(f"main_path_largest_launch_N{largest.shape[0]}",
                         sc.C, sc.row_sums, largest)
+    del job, sc
+    _fused_int16_run(parity, card, users, items, ts)
     return dict(launches=launches, **m)
+
+
+def _fused_int16_run(parity: ExpandParity, card: str, users, items,
+                     ts) -> None:
+    """The bench workload at ``--count-dtype int16`` (``C`` 800 MB), fused
+    on cuda with the counts reset just before and read just after, then
+    chained on cuda: state and counters exactly equal, rows in
+    ``topk_parity``; the largest expand launch replayed and timed."""
+    import torch
+
+    from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
+    from tpu_cooccurrence_torch.ops.score_topk import topk_parity
+
+    print("  bench workload at --count-dtype int16: fused vs chained",
+          flush=True)
+    job, _, _, blocks = _counted_fused_run("int16", card, users, items, ts)
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    print(f"  host stages: {job.step_timer.summary()}", flush=True)
+    ref, ref_elapsed = _run_job("cuda", "int16", users, items, ts,
+                                num_items=20_000)
+    print(f"  chained int16 {ref_elapsed:.3f} s, "
+          f"{pairs / ref_elapsed:.1f} pairs/s", flush=True)
+    if job.counters.as_dict() != ref.counters.as_dict():
+        _fail(f"int16: counters differ from the chained run: "
+              f"{job.counters} vs {ref.counters}")
+    a, b = job.scorer.checkpoint_state(), ref.scorer.checkpoint_state()
+    for key in ("C", "row_sums", "observed"):
+        if not np.array_equal(a[key], b[key]):
+            _fail(f"int16 fused vs chained: {key} differs")
+    del a, b
+    ia, va, da = _rows_table(job, 10)
+    ib, vb, db = _rows_table(ref, 10)
+    ok, mism = topk_parity(va, da, vb, db, rtol=RTOL, atol=ATOL)
+    if ia != ib or not ok or mism:
+        _fail(f"int16 fused vs chained: rows differ (same items "
+              f"{ia == ib}, scores_ok {ok}, untied id mismatches {mism})")
+    print(f"  int16: state, counters equal to the chained run; {len(ia)} "
+          f"rows in parity (bit-equal: "
+          f"{np.array_equal(va, vb) and np.array_equal(da, db)})",
+          flush=True)
+    del ref
+    largest = max(blocks, key=_valid_pairs)
+    sc = job.scorer
+    parity.compare(f"main_path_int16_largest_launch_N{largest.shape[0]}_"
+                   f"W{largest.shape[1] - 4}", sc.C, sc.row_sums,
+                   torch.from_numpy(largest).to("cuda"), reps=5)
+    _measure_expand(f"main_path_int16_largest_launch_N{largest.shape[0]}",
+                    sc.C, sc.row_sums, largest)
+    del job, sc
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -217,16 +217,32 @@ def test_sparse_scorer_on_card_matches_cpu(card):
 def _basket_ops(seed, n, w, num_items, hot_new=None):
     """Seeded star ops as a :class:`BasketBatch`: len 0 and len W ops,
     skips in range and past len, signs +-1, garbage past each len, and
-    (``hot_new``) every op on the same new item."""
+    (``hot_new``) every op on the same new item. ``hot_new="zipf"``:
+    new items and partners drawn Zipf 1.1, so a few partners recur in
+    nearly every op, as on the bench stream. ``hot_new="wrap"``: half
+    the ops add +1 to the cells (3, 5)/(5, 3), half -1 to (7, 11)/(11, 7),
+    one cell each (W = 1)."""
     rng = np.random.default_rng(seed)
+    if hot_new == "wrap":
+        half = n // 2
+        return BasketBatch(*(a.astype(np.int32) for a in (
+            np.r_[np.full(half, 3), np.full(n - half, 7)],
+            np.r_[np.full((half, 1), 5), np.full((n - half, 1), 11)],
+            np.ones(n), np.full(n, -1),
+            np.r_[np.ones(half), -np.ones(n - half)])))
     lens = rng.integers(0, w + 1, n)
     lens[0], lens[1] = 0, w
     j = np.arange(w)[None, :]
-    baskets = np.where(j < lens[:, None], rng.integers(0, num_items, (n, w)),
+    if hot_new == "zipf":
+        draw = (rng.zipf(1.1, (n, w + 1)) - 1) % num_items
+        partners, hot_new = draw[:, :w], draw[:, w]
+    else:
+        partners = rng.integers(0, num_items, (n, w))
+    baskets = np.where(j < lens[:, None], partners,
                        rng.integers(-2**31, 2**31 - 1, (n, w)))
     skips = np.where(rng.random(n) < 0.4, rng.integers(0, w + 2, n), -1)
     signs = np.where(rng.random(n) < 0.7, 1, -1)
-    new = (np.full(n, hot_new) if hot_new is not None
+    new = (np.broadcast_to(hot_new, n) if hot_new is not None
            else rng.integers(0, num_items, n))
     return BasketBatch(*(a.astype(np.int32) for a in
                          (new, baskets, lens, skips, signs)))
@@ -238,6 +254,10 @@ def _basket_ops(seed, n, w, num_items, hot_new=None):
     (21, 500, 40, 1001, torch.int16, None),     # odd I: the last cell
     (22, 3000, 3, 64, torch.int16, 7),          # contention, wraparound
     (23, 65, 700, 4096, torch.int32, None),     # rows wider than a warp
+    (24, 100_000, 1, 2000, torch.int16, None),  # W = 1: one cell an op
+    (25, 8000, 71, 5000, torch.int32, "zipf"),  # Zipf-hot partners
+    (26, 8000, 71, 5000, torch.int16, "zipf"),
+    (27, 80_000, 1, 64, torch.int16, "wrap"),   # int16 wraparound
 ])
 def test_expand_kernel_matches_plain_on_card(card, seed, n, w, n_items, dtype,
                                              hot):
@@ -260,6 +280,39 @@ def test_expand_kernel_matches_plain_on_card(card, seed, n, w, n_items, dtype,
     assert torch.equal(got_c, want_c)
     assert torch.equal(got_rs, want_rs)
     assert not torch.equal(got_c, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 1])
+def test_expand_kernel_int16_C_off_a_word_boundary_on_card(card, start):
+    """An odd-sized int16 ``C`` at cell 0 or 1 of a buffer with a guard
+    cell on each side: its last (start 0) or first (start 1) cell shares
+    a 32-bit word with a guard. Kernel and plain version agree exactly,
+    and the guards stay as they were."""
+    n_items = 1001
+    b = _basket_ops(28 + start, 2000, 16, n_items)
+    edge = np.resize([0, n_items - 1], 200)  # ops on the first/last cell
+    b.new_items[:200], b.baskets[:200, 0] = edge, edge
+    b.lens[:200], b.skips[:200] = np.maximum(b.lens[:200], 1), -1
+    block = torch.from_numpy(ex.pack_block(b.new_items, b.baskets, b.lens,
+                                           b.skips, b.signs)).to(card)
+    rng = np.random.default_rng(start)
+    cells = n_items * n_items
+    buf = torch.full((cells + 2,), 77, dtype=torch.int16, device=card)
+    got_c = buf[start:start + cells].view(n_items, n_items)
+    got_c.copy_(torch.from_numpy(
+        rng.integers(-30_000, 30_000, (n_items, n_items))).to(torch.int16))
+    rs0 = torch.from_numpy(rng.integers(0, 1 << 20, n_items).astype(
+        np.int32)).to(card)
+    want_c, got_rs, want_rs = got_c.clone(), rs0.clone(), rs0.clone()
+    for _ in range(3):
+        ex.apply_baskets(got_c, got_rs, block)
+        ex.apply_baskets_reference(want_c, want_rs, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got_rs, want_rs)
+    guards = torch.cat([buf[:start], buf[start + cells:]]).tolist()
+    assert guards == [77, 77]
 
 
 @pytest.mark.cuda

@@ -19,8 +19,9 @@ rectangle, then the columns new, len, skip, sign (:func:`pack_block`).
 :func:`apply_baskets` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel (``csrc/expand_scatter.cu``) or raises; on a CPU
 tensor it runs :func:`apply_baskets_reference`, the plain PyTorch version
-(:func:`expand_baskets_reference`'s lanes, then the chained path's
-``index_put_``/``index_add_``). :data:`LAUNCHES` counts kernel launches.
+(:func:`expand_baskets_reference`'s lanes, less those that add nothing,
+then the chained path's ``index_put_``/``index_add_``). :data:`LAUNCHES`
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -94,12 +95,14 @@ def apply_baskets_reference(C: torch.Tensor, row_sums: torch.Tensor,
                             block: torch.Tensor) -> None:
     """The plain PyTorch version, in place: the reference lanes, then
     ``C[src, dst] += delta`` (``index_put_`` accumulates duplicate
-    cells) and ``row_sums[src] += delta``. The no-op lanes add 0 at
-    ``(0, 0)``."""
+    cells) and ``row_sums[src] += delta``. Lanes with ``delta == 0`` (the
+    ``(0, 0, 0)`` no-op lanes, and valid lanes of sign 0) add nothing and
+    are dropped first, so they do not all queue on ``C[0, 0]``."""
     _check(C, row_sums, block)
     src, dst, delta = (t.reshape(-1) for t in
                        expand_baskets_reference(*split_block(block)))
-    src, dst = src.long(), dst.long()
+    keep = delta != 0
+    src, dst, delta = src[keep].long(), dst[keep].long(), delta[keep]
     C.index_put_((src, dst), delta.to(C.dtype), accumulate=True)
     row_sums.index_add_(0, src, delta)
 
