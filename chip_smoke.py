@@ -62,6 +62,26 @@ fatal on failure:
    and counters exactly equal, rows in ``topk_parity``; its wall,
    pairs/s, launches and largest launch against its bound.
 
+10. The pipelined window loop and checkpoint/resume. (a) The bench
+   workload fused and chained, and config 4 on the sparse path, each at
+   ``--pipeline-depth`` 0, 1, 2, 2, 1, 0 (in turns), the path's kernel
+   counts reset just before each run and read just after: every run's
+   state, counters and rows exactly equal to phase 4's (for the fused
+   runs: and so to phase 9's) or phase 7's depth-0 run; wall, pairs/s,
+   sampling and scorer seconds, queue wait and occupancy per run. (b) The
+   bench stream written to a CSV and run fused at depth 2 through the
+   file source and the batcher with ``--checkpoint-every-windows 10``,
+   dropped right after the window-10 checkpoint commits (no finish());
+   a fresh job restores from the directory and finishes from the
+   source's restored position: state, counters and rows exactly equal to
+   the uninterrupted run. (c) The same on config 4 (sparse, a 25-window
+   boundary): slab, counters and scores exactly equal, ids equal except
+   where scores tie exactly (the restored slab keeps each row's cells in
+   key order). (d) One byte of the newest sparse generation flipped: it
+   is quarantined and the restore falls back to the previous one, equal
+   to the dropped run's state. Every save and restore prints its bytes
+   and seconds.
+
 The last lines: the card, a ``{"kernels": [...]}`` JSON line naming all
 three kernels and ``{"ok": true, "device": {...}}``.
 """
@@ -836,7 +856,7 @@ def phase_sparse_main_path(parity: Parity, card: str) -> dict:
     parity.compare("main_path_largest_launch", rt.rect_topk(*args),
                    rt.rect_topk_reference(*args[:8]), exact=True)
     m = _measure_rect(f"main_path_largest_launch_S{largest['s']}", args)
-    return dict(launches=launches, **m)
+    return dict(launches=launches, job=job, **m)
 
 class ExpandParity:
     """Expand kernel vs plain: ``C`` and row sums must be exactly equal;
@@ -1304,6 +1324,321 @@ def _fused_int16_run(parity: ExpandParity, card: str, users, items,
     torch.cuda.empty_cache()
 
 
+# -- phase 10: the pipelined window loop and checkpoint/resume ----------
+
+
+#: The modules under ``ops/`` whose kernels each path launches.
+_PATH_KERNELS = {"chained": ("score_topk",),
+                 "fused": ("expand", "score_topk"),
+                 "sparse": ("rect_topk",)}
+
+
+def _kernel_modules(path):
+    import importlib
+
+    return [importlib.import_module(f"tpu_cooccurrence_torch.ops.{m}")
+            for m in _PATH_KERNELS[path]]
+
+
+def _counted(path, run):
+    """``run()`` with the path's kernel counts set to 0 just before and
+    read just after; fails unless each kernel of the path launched.
+    Returns ``run()``'s result and the counts."""
+    mods = _kernel_modules(path)
+    for m in mods:
+        m.LAUNCHES = 0
+    out = run()
+    counts = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in mods}
+    for name, n in counts.items():
+        if n <= 0:
+            _fail(f"{path}: the {name} kernel launched no time")
+    return out, counts
+
+
+def _stage_line(job, wall):
+    """Wall, pairs/s and the stage seconds of one run (host clocks)."""
+    from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
+
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    pipe = job.pipeline
+    wait = (f"queue wait {pipe.queue_wait_seconds:.4f} s, ring stall "
+            f"{pipe.ring_stall_seconds:.4f} s" if pipe else "serial")
+    return (f"wall {wall:.4f} s, {pairs / wall:.1f} pairs/s, sampling "
+            f"{job.step_timer.total_sample_seconds:.4f} s, scorer "
+            f"{job.step_timer.total_score_seconds:.4f} s, {wait}, "
+            f"occupancy {job.step_timer.occupancy(wall, pipe)}")
+
+
+def _dense_equal(job, ref, what):
+    """Counters, ``C``, row sums, ``observed`` and every row of two dense
+    jobs exactly equal (the integer state compared on the card)."""
+    import torch
+
+    got = {k: v for k, v in job.counters.as_dict().items()
+           if k != "SplitReaderNumSplits"}
+    want = {k: v for k, v in ref.counters.as_dict().items()
+            if k != "SplitReaderNumSplits"}
+    if got != want:
+        _fail(f"{what}: counters differ {got} vs {want}")
+    a, b = job.scorer, ref.scorer
+    if (a.observed != b.observed or not torch.equal(a.C, b.C)
+            or not torch.equal(a.row_sums, b.row_sums)):
+        _fail(f"{what}: C, row sums or observed differ")
+    ia, va, da = _rows_table(job, 10)
+    ib, vb, db = _rows_table(ref, 10)
+    if ia != ib or not np.array_equal(va, vb) or not np.array_equal(da, db):
+        _fail(f"{what}: rows differ (ids or float32 scores)")
+    return len(ia)
+
+
+def _tie_aware_mismatches(va, ia, vb, ib):
+    """Finite lanes whose ids differ although their score is untied: unique
+    in its row, and in a full row not equal to its K-th score (a partner
+    past the K-th lane may share it)."""
+    untied = (va[:, :, None] == va[:, None, :]).sum(-1) == 1
+    untied &= ~(np.isfinite(va[:, -1:]) & (va == va[:, -1:]))
+    return int(((ia != ib) & np.isfinite(va) & untied).sum())
+
+
+def _sparse_equal(job, ref, what, ties_may_swap=False):
+    """Counters, the canonical slab state and every row of two sparse jobs
+    exactly equal. After a restore the slab is laid out afresh (cells in
+    key order) and the top-K keeps the earliest slot among equal scores:
+    with ``ties_may_swap`` ids may then differ where scores tie."""
+    got = {k: v for k, v in job.counters.as_dict().items()
+           if k != "SplitReaderNumSplits"}
+    want = {k: v for k, v in ref.counters.as_dict().items()
+            if k != "SplitReaderNumSplits"}
+    if got != want:
+        _fail(f"{what}: counters differ {got} vs {want}")
+    a, b = job.scorer.checkpoint_state(), ref.scorer.checkpoint_state()
+    n = min(len(a["row_sums"]), len(b["row_sums"]))
+    if (not all(np.array_equal(a[k], b[k])
+                for k in ("rows_key", "rows_cnt", "observed"))
+            or not np.array_equal(a["row_sums"][:n], b["row_sums"][:n])
+            or a["row_sums"][n:].any() or b["row_sums"][n:].any()):
+        _fail(f"{what}: the slab's cells, row sums or observed differ")
+    ia, va, da = _rows_table(job, 10)
+    ib, vb, db = _rows_table(ref, 10)
+    if ia != ib or not np.array_equal(va, vb):
+        _fail(f"{what}: rows differ (items or float32 scores)")
+    if ties_may_swap:
+        mism = _tie_aware_mismatches(va, da, vb, db)
+        if mism:
+            _fail(f"{what}: {mism} untied ids differ")
+        return len(ia), int((da != db).sum())
+    if not np.array_equal(da, db):
+        _fail(f"{what}: rows differ (ids)")
+    return len(ia), 0
+
+
+def _depth_parity(card, chained_job, sparse_job):
+    """(a) Each path at depths 0, 1, 2, 2, 1, 0 (in turns, for the
+    timings), every run exactly equal to the depth-0 run of phase 4 (the
+    dense paths: phase 9 equals it) or phase 7 (sparse)."""
+    users, items, ts = _bench_stream()
+    for path, extra in (("fused", dict(fused_window="on")),
+                        ("chained", {})):
+        for depth in (0, 1, 2, 2, 1, 0):
+            (job, wall), counts = _counted(path, lambda: _run_job(
+                "cuda", "int32", users, items, ts, num_items=20_000,
+                pipeline_depth=depth, **extra))
+            rows = _dense_equal(job, chained_job,
+                                f"{path} depth {depth}")
+            print(f"  {card}: {path} depth {depth}: {_stage_line(job, wall)}"
+                  f"; launches {counts}; state, counters and {rows} rows "
+                  f"exactly equal to depth 0", flush=True)
+            del job
+    users, items, ts = _config4_stream()
+    from tpu_cooccurrence_torch.config import Config
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+
+    for depth in (0, 1, 2, 2, 1, 0):
+        def run():
+            job = CooccurrenceJob(Config(**CONFIG4_JOB, device="cuda",
+                                         pipeline_depth=depth))
+            start = time.monotonic()
+            job.add_batch(users, items, ts)
+            job.finish()
+            import torch
+
+            torch.cuda.synchronize()
+            return job, time.monotonic() - start
+
+        (job, wall), counts = _counted("sparse", run)
+        rows, _ = _sparse_equal(job, sparse_job, f"sparse depth {depth}")
+        print(f"  {card}: sparse config 4 depth {depth}: "
+              f"{_stage_line(job, wall)}; launches {counts}; slab, "
+              f"counters and {rows} rows exactly equal to phase 7",
+              flush=True)
+        del job
+
+
+def _write_csv(path, users, items, ts):
+    with open(path, "w") as f:
+        f.write("".join(f"{u},{i},{t}\n" for u, i, t in
+                        zip(users.tolist(), items.tolist(), ts.tolist())))
+
+
+class _Abandon(Exception):
+    """Raised right after a checkpoint commits: the run is dropped there."""
+
+
+def _commit_line(what):
+    from tpu_cooccurrence_torch.observability.registry import REGISTRY
+    from tpu_cooccurrence_torch.state import checkpoint as ckpt
+
+    gen = int(REGISTRY.gauge(ckpt.GENERATION_GAUGE).get())
+    nbytes = int(REGISTRY.gauge(ckpt.COMMIT_BYTES_GAUGE).get())
+    secs = REGISTRY.gauge(ckpt.COMMIT_SECONDS_GAUGE).get()
+    print(f"    {what}: generation {gen}, commit {nbytes} bytes in "
+          f"{secs:.4f} s", flush=True)
+
+
+def _resume(card, path, cfg, csv, every, check):
+    """Run ``cfg`` over ``csv`` through the file source and the batcher,
+    checkpointing every ``every`` windows; drop the run right after the
+    first checkpoint commits (no finish()); restore a fresh job from the
+    directory and finish from the source's restored position; hold it to
+    ``check(job, what)``. Returns the dropped job (its state is the
+    checkpoint's) and the checkpoint directory."""
+    import torch
+
+    from tpu_cooccurrence_torch.io.parse import batched_lines
+    from tpu_cooccurrence_torch.io.source import FileMonitorSource
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+
+    a = CooccurrenceJob(cfg)
+    save = a.checkpoint
+
+    def checkpoint_then_drop(source=None):
+        save(source=source)
+        raise _Abandon
+
+    a.checkpoint = checkpoint_then_drop
+    a.source = FileMonitorSource(csv, a.counters)
+
+    def first():
+        start = time.monotonic()
+        try:
+            a.run(batched_lines(a.source.lines()))
+        except _Abandon:
+            torch.cuda.synchronize()
+            return time.monotonic() - start
+        _fail(f"{path}: the run ended without a checkpoint")
+
+    wall_a, counts_a = _counted(path, first)
+    meta = a.source.checkpoint_state()
+    if a.windows_fired != every or not 0 < meta["current_line"]:
+        _fail(f"{path}: dropped at window {a.windows_fired}, source "
+              f"{meta} (wanted window {every}, mid-file)")
+    print(f"  {card}: {path} run dropped after the window-{every} "
+          f"checkpoint, {wall_a:.3f} s, at line {meta['current_line']} of "
+          f"{os.path.basename(csv)}; launches {counts_a}", flush=True)
+    _commit_line("save")
+
+    b = CooccurrenceJob(cfg)
+    b.source = FileMonitorSource(csv, b.counters)
+    start = time.monotonic()
+    b.restore(source=b.source)
+    torch.cuda.synchronize()
+    print(f"    restore: {time.monotonic() - start:.4f} s, "
+          f"windows_fired {b.windows_fired}", flush=True)
+
+    def rest():
+        start = time.monotonic()
+        b.run(batched_lines(b.source.lines()))
+        torch.cuda.synchronize()
+        return time.monotonic() - start
+
+    wall_b, counts_b = _counted(path, rest)
+    _commit_line("save by the resumed run")
+    result = check(b, f"{path} resumed")
+    print(f"  {path} resumed run {wall_b:.3f} s, launches {counts_b}: "
+          f"{result}", flush=True)
+    return a, cfg.checkpoint_dir
+
+
+def _corrupt_fallback(card, dropped, directory, check):
+    """(d) One byte of the newest generation flipped: the restore
+    quarantines it and falls back one generation, to the dropped run's
+    state."""
+    import torch
+
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+    from tpu_cooccurrence_torch.observability.registry import REGISTRY
+    from tpu_cooccurrence_torch.state import checkpoint as ckpt
+
+    gens = ckpt.generations(directory)
+    newest = gens[0][1]
+    with open(newest, "r+b") as f:
+        f.seek(os.path.getsize(newest) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+    before = REGISTRY.gauge(ckpt.QUARANTINE_GAUGE).get()
+    job = CooccurrenceJob(dropped.config)
+    start = time.monotonic()
+    job.restore()
+    torch.cuda.synchronize()
+    took = time.monotonic() - start
+    if (not os.path.exists(newest + ".corrupt") or os.path.exists(newest)
+            or REGISTRY.gauge(ckpt.QUARANTINE_GAUGE).get() != before + 1
+            or job.windows_fired != dropped.windows_fired):
+        _fail(f"corrupt generation {gens[0][0]}: not quarantined, or the "
+              f"restore did not fall back to generation {gens[1][0]}")
+    result = check(job, "fallback restore")
+    print(f"  {card}: generation {gens[0][0]} with one byte flipped "
+          f"quarantined; restore fell back to generation {gens[1][0]} "
+          f"(windows_fired {job.windows_fired}) in {took:.4f} s; equal to "
+          f"the dropped run's state: {result}", flush=True)
+
+
+def phase_pipeline_and_resume(card: str, chained_job, sparse_job) -> None:
+    import tempfile
+
+    from tpu_cooccurrence_torch.config import Config
+
+    print("phase 10: pipelined window loop (--pipeline-depth 1|2) and "
+          "checkpoint/resume", flush=True)
+    _depth_parity(card, chained_job, sparse_job)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print("  (b) resume on the fused bench path, depth 2", flush=True)
+        csv = os.path.join(tmp, "bench.csv")
+        _write_csv(csv, *_bench_stream())
+        cfg = Config(window_size=100, seed=0xC0FFEE, item_cut=500,
+                     user_cut=500, num_items=20_000, device="cuda",
+                     fused_window="on", pipeline_depth=2,
+                     checkpoint_dir=os.path.join(tmp, "dense"),
+                     checkpoint_every_windows=10)
+        dropped, _ = _resume(
+            card, "fused", cfg, csv, 10,
+            lambda job, what: f"state, counters and "
+            f"{_dense_equal(job, chained_job, what)} rows exactly equal "
+            f"to the uninterrupted depth-0 run")
+        del dropped
+
+        print("  (c) resume on sparse config 4, depth 2", flush=True)
+        csv = os.path.join(tmp, "config4.csv")
+        _write_csv(csv, *_config4_stream())
+        cfg = Config(**CONFIG4_JOB, device="cuda", pipeline_depth=2,
+                     checkpoint_dir=os.path.join(tmp, "sparse"),
+                     checkpoint_every_windows=25)
+
+        def sparse_check(job, what, ref=sparse_job):
+            rows, swapped = _sparse_equal(job, ref, what, ties_may_swap=True)
+            return (f"slab, counters and {rows} rows' scores exactly equal, "
+                    f"ids equal but on {swapped} lanes of exactly tied "
+                    f"scores")
+
+        dropped, directory = _resume(card, "sparse", cfg, csv, 25,
+                                     sparse_check)
+        print("  (d) a corrupted newest generation", flush=True)
+        _corrupt_fallback(card, dropped, directory,
+                          lambda job, what: sparse_check(job, what, dropped))
+
+
 def main() -> int:
     try:
         import torch
@@ -1349,6 +1684,7 @@ def main() -> int:
     expand_parity = ExpandParity()
     phase_expand_kernel(expand_parity)
     fused_run = phase_fused_main_path(expand_parity, card, main_run["job"])
+    phase_pipeline_and_resume(card, main_run["job"], sparse_run["job"])
 
     for name, par in (("score_topk", parity), ("rect_topk", rect_parity),
                       ("expand_scatter", expand_parity)):

@@ -52,6 +52,8 @@ from tpu_cooccurrence_torch.config import Config as PortConfig
 from tpu_cooccurrence_torch.job import CooccurrenceJob as PortJob
 from tpu_cooccurrence_torch.ops.score_topk import topk_parity
 
+from test_torch_checkpoint import tie_aware_mismatches
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 PORT_DIR = os.path.join(REPO, "tpu_cooccurrence_torch")
@@ -217,8 +219,8 @@ def test_port_sources_import_no_jax(path):
     ["--backend", "sharded"],
     ["--backend", "oracle"],
     ["--pallas", "off"],
-    ["--pipeline-depth", "2"],
-    ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-incremental"],
+    ["--restart-on-failure", "1"],
     ["--serve-port", "8080"],
     ["--metrics-port", "9090"],
     ["--journal", "j.jsonl"],
@@ -250,6 +252,95 @@ def test_cuda_without_a_card_exits_with_a_clear_error(caplog, tmp_path,
     assert rc == port_cli.EX_UNAVAILABLE != 0
     msg = "\n".join(r.getMessage() for r in caplog.records)
     assert "no CUDA device" in msg and "--device cpu" in msg
+
+
+def _zipf_csv(tmp_path):
+    """A small Zipf stream as CSV: 6,000 events over 30 windows of 10 ms."""
+    users, items, ts = zipfian_interactions(
+        n_events=6_000, n_items=400, n_users=150, alpha=1.1, seed=5,
+        events_per_ms=20)
+    path = tmp_path / "zipf_small.csv"
+    with open(path, "w") as f:
+        for u, i, t in zip(users.tolist(), items.tolist(), ts.tolist()):
+            f.write(f"{u},{i},{t}\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("path_args", [
+    [], ["--fused-window", "on"], ["--backend", "sparse"]],
+    ids=["chained", "fused", "sparse"])
+def test_cli_pipelined_stdout_equals_serial(capsys, tmp_path, path_args):
+    """``--pipeline-depth 1|2 --emit-updates``: the stream comes from the
+    scorer worker and equals depth 0's byte for byte (cuts tight enough
+    for replacements and feedback)."""
+    base = ["-i", _zipf_csv(tmp_path), "-s", "0xC0FFEE", "-ws", "10",
+            "-ic", "60", "-uc", "4", "--device", "cpu", "--emit-updates",
+            *path_args]
+    serial = _run(capsys, port_cli.main, base)
+    assert len(serial.splitlines()) > 100
+    for depth in ("1", "2"):
+        assert _run(capsys, port_cli.main,
+                    base + ["--pipeline-depth", depth]) == serial
+
+
+def _last_row_per_item(out):
+    rows = {}
+    for line in out.splitlines():
+        item, _, rest = line.partition("\t")
+        rows[item] = rest
+    return rows
+
+
+def _assert_same_lines(got, want, ties_may_swap):
+    """Same items in the same order with the same rendered scores; ids
+    equal, or on the sparse path equal wherever the score is untied (its
+    restore lays each row's cells out in key order, and the top-K keeps
+    the earliest slot among equal scores)."""
+    if not ties_may_swap:
+        assert got == want
+        return
+    g_items, g_vals, g_ids = _emitted_lines(got, 10)
+    w_items, w_vals, w_ids = _emitted_lines(want, 10)
+    assert g_items == w_items
+    np.testing.assert_array_equal(g_vals, w_vals)
+    assert tie_aware_mismatches(g_vals, g_ids, w_vals, w_ids, 0.0, 0.0) == 0
+
+
+@pytest.mark.parametrize("path_args", [[], ["--backend", "sparse"]],
+                         ids=["dense", "sparse"])
+def test_cli_second_run_resumes_and_replays(capsys, tmp_path, path_args):
+    """A second run on the same ``--checkpoint-dir`` restores the newest
+    generation (windows still buffered in it fire again, the consumed
+    input is not re-read): without --emit-updates it prints what the
+    first run printed; with it, it first replays the restored rows, and
+    every item's last line equals the first run's."""
+    path = _zipf_csv(tmp_path)
+    sparse = bool(path_args)
+    for emit in ([], ["--emit-updates"]):
+        ck = tmp_path / f"ck{len(emit)}"
+        args = ["-i", path, "-s", "0xC0FFEE", "-ws", "10", "-ic", "60",
+                "-uc", "4", "--device", "cpu", *path_args,
+                *emit, "--pipeline-depth", "2", "--checkpoint-dir", str(ck),
+                "--checkpoint-every-windows", "7"]
+        first = _run(capsys, port_cli.main, args)
+        newest = max(ck.glob("state.*.npz"),
+                     key=lambda p: int(p.name.split(".")[1]))
+        with np.load(newest) as f:
+            restored = f["latest_items"].tolist()
+            fired = json.loads(bytes(f["meta_json"]))["windows_fired"]
+        assert restored and fired % 7 == 0
+        second = _run(capsys, port_cli.main, args)
+        if not emit:
+            _assert_same_lines(second, first, sparse)
+            continue
+        lines = second.splitlines()
+        assert [int(ln.partition("\t")[0])
+                for ln in lines[:len(restored)]] == restored
+        last = [_last_row_per_item(out) for out in (second, first)]
+        assert last[0].keys() == last[1].keys()
+        _assert_same_lines(
+            *("\n".join(f"{k}\t{v}" for k, v in sorted(rows.items()))
+              for rows in last), sparse)
 
 
 SPARSE_RUNS = [

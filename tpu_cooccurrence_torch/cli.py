@@ -1,9 +1,10 @@
 """Command-line entry point (port of ``tpu_cooccurrence/cli.py``).
 
-Parses the config, echoes it, builds and runs the job over the file
-input on the card (``--device cpu`` to run the plain PyTorch path on the
-CPU), then prints the latest top-K per item to stdout in the reference
-package's row format.
+Parses the config, echoes it, builds the job (restoring the newest
+checkpoint in ``--checkpoint-dir`` if there is one, the input position
+included) and runs it over the file input on the card (``--device cpu``
+to run the plain PyTorch path on the CPU), then prints the latest top-K
+per item to stdout in the reference package's row format.
 
     python -m tpu_cooccurrence_torch.cli -i FILE -ws MS [-s SEED] ...
 """
@@ -19,6 +20,7 @@ from .device import DeviceUnavailable
 from .io.parse import batched_lines
 from .io.source import FileMonitorSource
 from .job import CooccurrenceJob
+from .state import checkpoint as ckpt
 from .state.sparse_scorer import SlabCapacityError
 
 LOG = logging.getLogger("tpu_cooccurrence_torch")
@@ -45,6 +47,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         LOG.error("configuration error: %s", exc)
         return EX_CONFIG
     config.log_configuration(LOG)
+    if config.pipeline_depth > 0:
+        # With --emit-updates the result stream comes from the pipeline's
+        # scorer worker, not the ingest thread: worth knowing when reading
+        # stdout against stderr's timing lines.
+        LOG.info("pipelined execution: depth=%d (host sampling overlaps "
+                 "the scorer stage; output is bit-identical to serial)",
+                 config.pipeline_depth)
     try:
         job = CooccurrenceJob(config)
     except DeviceUnavailable as exc:
@@ -52,6 +61,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return EX_UNAVAILABLE
     source = FileMonitorSource(config.input, job.counters,
                                process_continuously=config.process_continuously)
+    # Checkpoints snapshot the source's position (job.source).
+    job.source = source
+    if config.checkpoint_dir and ckpt.exists(config.checkpoint_dir):
+        try:
+            job.restore(source=source)
+        except ValueError as exc:
+            # Permanent: a restart would meet the same checkpoint.
+            LOG.error("restore refused: %s", exc)
+            return EX_CONFIG
+        LOG.info("restored checkpoint from %s (windows_fired=%d)",
+                 config.checkpoint_dir, job.windows_fired)
     if config.emit_updates:
         def _stream(window_out) -> None:
             # One line per updated row as windows land; job.latest already
@@ -63,6 +83,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       flush=config.process_continuously)
 
         job.on_update = _stream
+        if job.windows_fired:
+            # Resumed run: replay the restored rows so the stream is
+            # complete (rows not updated after the checkpoint would
+            # otherwise never appear).
+            snap = job.latest.snapshot()
+            for item in sorted(snap):
+                print(_render_row(item, snap[item]),
+                      flush=config.process_continuously)
     # --buffer-timeout bounds how long a parsed line may wait in a partial
     # batch; it only matters when tailing input continuously.
     latency = (config.buffer_timeout / 1000.0

@@ -10,7 +10,9 @@ ignored.
 
 Two backends are ported: ``device`` (the dense ``C``, with its fused
 window, ``--fused-window``) and ``sparse`` (the slab; ``hybrid`` is its
-retired alias). The port adds ``--device cuda|cpu`` (default ``cuda``).
+retired alias), each with the pipelined window loop
+(``--pipeline-depth``) and full checkpoints (``--checkpoint-dir``). The
+port adds ``--device cuda|cpu`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -86,6 +88,11 @@ class Config:
     cell_dtype: str = "auto"  # sparse slab cells; auto = int32 here
     wire_format: str = "auto"  # sparse uplink; auto = raw here
     fused_window: str = "off"  # dense fused window; auto = on on cuda
+    # Sampled-but-unscored windows in flight (0 = serial; pipeline.py).
+    pipeline_depth: int = tuning.default("pipeline_depth")
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_windows: int = 0  # 0 = no periodic checkpoints
+    checkpoint_retain: int = 3  # generation-numbered checkpoints kept
 
     def __post_init__(self):
         if self.seed is None:
@@ -112,6 +119,14 @@ class Config:
             # The sparse fused window consumes folded deltas, not baskets.
             raise NotPorted("--fused-window on with --backend sparse is "
                             "not yet ported to tpu_cooccurrence_torch")
+        if self.pipeline_depth not in (0, 1, 2):
+            raise ValueError(
+                f"--pipeline-depth must be 0, 1 or 2, got "
+                f"{self.pipeline_depth}")
+        if self.checkpoint_retain < 1:
+            raise ValueError(
+                f"--checkpoint-retain must be >= 1, got "
+                f"{self.checkpoint_retain}")
         if self.score_ladder is not None:
             ladder_bits(self.score_ladder)
         if self.device == "cuda" and self.top_k > MAX_TOP_K:
@@ -215,6 +230,27 @@ class Config:
                             ">= 2; default 4): the plain version's "
                             "rectangle widths and the order rows are "
                             "emitted in")
+        p.add_argument("--pipeline-depth", type=int, choices=[0, 1, 2],
+                       default=tuning.default("pipeline_depth"),
+                       dest="pipeline_depth",
+                       help="Overlap host sampling with the scorer stage: "
+                            "sample window N+1 while a worker thread "
+                            "scores window N (0 = serial, 2 = double-"
+                            "buffered; output is bit-identical at every "
+                            "depth)")
+        p.add_argument("--checkpoint-dir", default=None,
+                       dest="checkpoint_dir",
+                       help="Restore from the newest checkpoint here at "
+                            "start, if there is one, and write "
+                            "checkpoints here")
+        p.add_argument("--checkpoint-every-windows", type=int, default=0,
+                       dest="checkpoint_every_windows",
+                       help="Checkpoint every N fired windows (0 = never)")
+        p.add_argument("--checkpoint-retain", type=int, default=3,
+                       dest="checkpoint_retain",
+                       help="Generation-numbered checkpoints to keep "
+                            "(restore falls back to the newest one that "
+                            "verifies; default: 3)")
         for flags, kw in _NOT_PORTED_FLAGS:
             ported = _PORTED_VALUES.get(kw["dest"])
             p.add_argument(*flags, **kw, help=(
@@ -278,11 +314,6 @@ _NOT_PORTED_FLAGS = (
     _flag("--wire-format", choices=("auto", "raw", "packed"),
           default="auto"),
     _flag("--fixed-score", choices=("auto", "on", "off"), default="auto"),
-    _flag("--pipeline-depth", type=int, choices=(0, 1, 2),
-          default=tuning.default("pipeline_depth")),
-    _flag("--checkpoint-dir", **_STR),
-    _flag("--checkpoint-every-windows", **_INT0),
-    _flag("--checkpoint-retain", type=int, default=3),
     _flag("--checkpoint-incremental", **_FLAG),
     _flag("--checkpoint-compact-ratio", type=float, default=0.5),
     _flag("--restart-on-failure", **_INT0),

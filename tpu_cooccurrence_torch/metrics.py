@@ -32,6 +32,12 @@ class Counters:
         with self._lock:
             return dict(self._counters)
 
+    def replace_all(self, values: Dict[str, int]) -> None:
+        """Overwrite all counters (checkpoint restore)."""
+        with self._lock:
+            self._counters.clear()
+            self._counters.update(values)
+
     def __repr__(self) -> str:
         with self._lock:
             inner = ", ".join(

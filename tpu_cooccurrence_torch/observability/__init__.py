@@ -76,16 +76,33 @@ class StepTimer:
     def slowest_as_dicts(self, n: int = 3) -> list:
         return [w.as_dict() for w in self.slowest(n)]
 
-    def occupancy(self, wall_seconds: float) -> Dict[str, float]:
-        """Per-stage busy fractions of a run's wall clock. On the card
+    def occupancy(self, wall_seconds: float,
+                  pipeline=None) -> Dict[str, float]:
+        """Per-stage busy fractions of a run's wall clock.
+
+        A serial run's ``host_busy_pct + score_busy_pct`` sums to at most
+        ~100 (plus ingest outside both stages); a pipelined run's stages
+        overlap and may sum past 100, by the overlap won. On the card
         ``score_busy_pct`` is host time in the scorer stage (launches plus
-        the synchronising result copies), not device occupancy."""
+        the synchronising result copies), not device occupancy. With a
+        ``pipeline`` (``pipeline.PipelineDriver``) it also reports the
+        producer's block time in ``submit`` (``queue_wait_seconds``) and
+        waiting for a free staging slot (``ring_stall_seconds``; part of
+        the sampling stage's seconds), both growing while the scorer
+        stage is the bottleneck, and the worker's busy seconds.
+        """
         w = max(wall_seconds, 1e-9)
-        return {
+        out = {
             "host_busy_pct": round(100.0 * self.total_sample_seconds / w, 1),
             "score_busy_pct": round(100.0 * self.total_score_seconds / w, 1),
             "wall_seconds": round(wall_seconds, 4),
         }
+        if pipeline is not None:
+            out["queue_wait_seconds"] = round(pipeline.queue_wait_seconds, 4)
+            out["ring_stall_seconds"] = round(pipeline.ring_stall_seconds, 4)
+            out["scorer_busy_seconds"] = round(
+                pipeline.scorer_busy_seconds, 4)
+        return out
 
 
 class TransferLedger:

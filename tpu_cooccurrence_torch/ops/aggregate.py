@@ -4,10 +4,13 @@
 The reference folds a window's pair deltas per (item, other) cell before
 they reach the rescorer (``ItemRowAggregator.java:26-31``); here the same
 fold also leaves the device scatter with one entry per distinct cell.
+:class:`AggregatedPairs` carries an already-folded window from the
+pipeline's producer thread to a scorer that accepts it (``pipeline.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -36,6 +39,34 @@ def aggregate_window_coo(src: np.ndarray, dst: np.ndarray,
     out = ((uniq_key >> 32).astype(np.int32),
            (uniq_key & 0xFFFFFFFF).astype(np.int32), agg)
     return out + (uniq_key,) if return_key else out
+
+
+@dataclasses.dataclass
+class AggregatedPairs:
+    """One window's pair deltas already folded by :func:`aggregate_window_coo`.
+
+    The pipelined window loop (``pipeline.py``) runs the fold on its
+    producer thread, so the scorer's turn starts at slot allocation;
+    scorers that set ``accepts_aggregated = True`` take this in place of
+    a raw ``PairDeltaBatch`` and skip their own fold. The fields are
+    exactly the ``return_key=True`` output (sorted by packed key, one
+    entry per distinct cell, int64 exact deltas), so a scorer consuming
+    them is bit-identical to one folding the raw batch itself.
+    """
+
+    src: np.ndarray    # [M] int32, sorted (primary key)
+    dst: np.ndarray    # [M] int32
+    delta: np.ndarray  # [M] int64 exact folded deltas
+    key: np.ndarray    # [M] int64 packed src << 32 | dst, sorted
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+    @staticmethod
+    def fold(src, dst, delta) -> "AggregatedPairs":
+        s, d, v, k = aggregate_window_coo(
+            src, dst, delta.astype(np.int64), return_key=True)
+        return AggregatedPairs(s, d, v, k)
 
 
 def narrow_deltas_int32(agg: np.ndarray) -> np.ndarray:

@@ -373,3 +373,38 @@ class UserReservoirSampler:
             skips[n_app:] = r_skips
             signs[n_app:] = r_signs
         return BasketBatch(new_items, baskets, lens, skips, signs)
+
+    # -- checkpoint -------------------------------------------------------
+
+    def clean_hist(self, n_users: int) -> np.ndarray:
+        """``hist[:n_users]`` with the unspecified cells beyond each row's
+        ``hist_len`` zeroed: storage grows with ``np.empty``, and stale
+        heap bytes must not reach a checkpoint (it has to be
+        byte-reproducible, and compressible)."""
+        h = self.hist[:n_users].copy()
+        cols = np.arange(h.shape[1], dtype=np.int64)[None, :]
+        h[cols >= self.hist_len[:n_users, None]] = 0
+        return h
+
+    def checkpoint_state(self, n_users: int) -> dict:
+        """Reservoir state of the first ``n_users`` dense users, in the
+        reference package's keys and layout.
+
+        The vocab can be ahead of the sampler (users whose events are
+        still buffered in unfired windows, or late-dropped): the arrays
+        are sized up before slicing, or the slice would come up short."""
+        self._ensure_rows(max(n_users - 1, 0))
+        return {
+            "hist": self.clean_hist(n_users),
+            "hist_len": self.hist_len[:n_users],
+            "total": self.total[:n_users],
+            "draws": self.draws[:n_users],
+        }
+
+    def restore_state(self, st: dict, n_users: int) -> None:
+        self._ensure_rows(max(n_users - 1, 0))
+        self._ensure_cols(st["hist"].shape[1])
+        self.hist[:n_users, : st["hist"].shape[1]] = st["hist"]
+        self.hist_len[:n_users] = st["hist_len"]
+        self.total[:n_users] = st["total"]
+        self.draws[:n_users] = st["draws"]

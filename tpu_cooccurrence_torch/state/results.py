@@ -1,13 +1,13 @@
 """Array-native top-K result store with lazy materialization.
 
-Copy of ``tpu_cooccurrence/state/results.py`` trimmed to the packed-batch
-form the port's device scorer produces (the list-row adapter serves host
-backends, which are not ported yet). The scorer hands back whole windows
-as packed ``[S, K]`` arrays (:class:`TopKBatch`); :class:`LatestResults`
-absorbs them with O(S) numpy scatters into a dense pointer table, and the
-per-item ``[(other, score), ...]`` lists are built only for items read.
-All stored ids are dense vocab indices; external ids appear only at the
-materialization boundary.
+Copy of ``tpu_cooccurrence/state/results.py``, trimmed. The scorers hand
+back whole windows as packed ``[S, K]`` arrays (:class:`TopKBatch`);
+:class:`LatestResults` absorbs them with O(S) numpy scatters into a dense
+pointer table, and the per-item ``[(other, score), ...]`` lists are built
+only for items read. A checkpoint restore lands its rows one at a time
+(:meth:`LatestResults.set_row`, the list-row adapter). All stored ids are
+dense vocab indices; external ids appear only at the materialization
+boundary.
 """
 
 from __future__ import annotations
@@ -50,8 +50,24 @@ class TopKBatch:
                          np.concatenate(vals_l))
 
 
-def _materialize_row(b: TopKBatch, row: int, vocab) -> List[Tuple[int, float]]:
+class _ListBatch:
+    """Rows set one by one as ``[(dense other, score), ...]`` lists."""
+
+    def __init__(self) -> None:
+        self.rows: List[List[Tuple[int, float]]] = []
+
+    def append(self, top: List[Tuple[int, float]]) -> int:
+        self.rows.append(top)
+        return len(self.rows) - 1
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+def _materialize_row(b, row: int, vocab) -> List[Tuple[int, float]]:
     """One stored row -> ``[(external other, score), ...]``."""
+    if isinstance(b, _ListBatch):
+        return [(vocab.to_external(j), s) for j, s in b.rows[row]]
     vals = b.vals[row]
     keep = np.isfinite(vals)
     if not keep.any():
@@ -141,15 +157,43 @@ class LatestResults(Mapping):
                     and self._total_rows > 2 * len(self)):
                 self._compact()
 
+    def set_row(self, dense_item: int, top: List[Tuple[int, float]]) -> None:
+        """One row as a ``[(dense other, score), ...]`` list (restore)."""
+        with self._lock:
+            if (not self._batches
+                    or not isinstance(self._batches[-1], _ListBatch)):
+                self._batches.append(_ListBatch())
+            bid = len(self._batches) - 1
+            row = self._batches[bid].append(top)
+            self._ensure(dense_item + 1)
+            self._ptr_batch[dense_item] = bid
+            self._ptr_row[dense_item] = row
+            self._total_rows += 1
+            if (self._total_rows >= self._COMPACT_MIN_ROWS
+                    and self._total_rows > 2 * len(self)):
+                self._compact()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._batches = []
+            self._ptr_batch[:] = -1
+            self._total_rows = 0
+
     def _compact(self) -> None:
-        """Drop superseded rows: rebuild live rows into one batch."""
+        """Drop superseded rows: rebuild live array rows into one batch
+        (list rows are set again as they are)."""
         live = np.nonzero(self._ptr_batch[: len(self._vocab)] >= 0)[0]
         bids = self._ptr_batch[live]
         rows = self._ptr_row[live]
+        keep_lists = []
         arr_rows, arr_idx, arr_vals = [], [], []
         for bid in np.unique(bids):
             b = self._batches[bid]
-            r = rows[bids == bid]
+            sel = bids == bid
+            r = rows[sel]
+            if isinstance(b, _ListBatch):
+                keep_lists.append((b, live[sel], r))
+                continue
             arr_rows.append(b.rows[r])
             arr_idx.append(b.idx[r])
             arr_vals.append(b.vals[r])
@@ -160,6 +204,9 @@ class LatestResults(Mapping):
             self.absorb_batch(TopKBatch(np.concatenate(arr_rows),
                                         np.concatenate(arr_idx),
                                         np.concatenate(arr_vals)))
+        for b, dense_ids, r in keep_lists:
+            for d, row in zip(dense_ids.tolist(), r.tolist()):
+                self.set_row(d, b.rows[row])
 
     def _live_dense(self) -> np.ndarray:
         n = min(len(self._ptr_batch), len(self._vocab))

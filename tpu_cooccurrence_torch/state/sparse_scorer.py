@@ -46,12 +46,13 @@ from .. import tuning
 from ..device import resolve_device
 from ..metrics import Counters, RESCORED_ITEMS, ROW_SUM_PROCESS_WINDOW
 from ..observability import LEDGER
-from ..ops.aggregate import (aggregate_window_coo, distinct_sorted,
-                             merge_sorted_insert, narrow_deltas_int32)
+from ..ops.aggregate import (AggregatedPairs, aggregate_window_coo,
+                             distinct_sorted, merge_sorted_insert,
+                             narrow_deltas_int32)
 from ..ops.device_scorer import DeferredResultsTable
 from ..ops.rect_topk import (MAX_TOP_K, ladder_bits, min_rect_width,
                              rect_topk, score_buckets, short_rows)
-from ..sampling.reservoir import PairDeltaBatch, _ragged_arange
+from ..sampling.reservoir import _ragged_arange
 from .results import TopKBatch
 from .wire import checked_narrow
 
@@ -639,6 +640,12 @@ class SparseDeviceScorer:
     ``device`` defaults to the card; the CPU runs only when asked for.
     """
 
+    # The pipelined window loop (pipeline.py) may hand this scorer
+    # pre-folded AggregatedPairs: the producer thread runs the per-cell
+    # fold, and process_window starts at slot allocation. Bit-identical
+    # either way (the fold is the same aggregate_window_coo call).
+    accepts_aggregated = True
+
     def __init__(self, top_k: int, counters: Optional[Counters] = None,
                  development_mode: bool = False,
                  capacity: int = 1 << 16,
@@ -729,8 +736,10 @@ class SparseDeviceScorer:
 
     # -- the window step --------------------------------------------------
 
-    def process_window(self, ts: int, pairs: PairDeltaBatch) -> TopKBatch:
-        """Apply one window's pair deltas and rescore its touched rows.
+    def process_window(self, ts: int, pairs) -> TopKBatch:
+        """Apply one window's pair deltas (a :class:`PairDeltaBatch`, or
+        the same window already folded, :class:`AggregatedPairs`) and
+        rescore its touched rows.
 
         Returns the previous window's top-K rows under ``--emit-updates``
         (one window late), or an empty batch in deferred mode.
@@ -747,9 +756,12 @@ class SparseDeviceScorer:
             self.cnt, self.dst = _compact_gather(
                 self.cnt, self.dst, self._to_device(gmap), self.capacity)
         self._ensure_items(int(max(pairs.src.max(), pairs.dst.max())))
-        src_d, _, d_val, d_key = aggregate_window_coo(
-            pairs.src, pairs.dst, pairs.delta.astype(np.int64),
-            return_key=True)
+        if isinstance(pairs, AggregatedPairs):
+            src_d, d_val, d_key = pairs.src, pairs.delta, pairs.key
+        else:
+            src_d, _, d_val, d_key = aggregate_window_coo(
+                pairs.src, pairs.dst, pairs.delta.astype(np.int64),
+                return_key=True)
         d_val32 = narrow_deltas_int32(d_val)
 
         # Row sums first (watermark ordering, reference

@@ -165,3 +165,27 @@ class IdMap:
 
     def to_external_batch(self, dense: np.ndarray) -> np.ndarray:
         return self.external_array()[dense]
+
+    # -- checkpoint ------------------------------------------------------
+
+    def checkpoint_state(self) -> np.ndarray:
+        """The dense -> external id array (the reference package's layout)."""
+        return np.asarray(self._rev, dtype=np.int64)
+
+    def restore_state(self, rev: np.ndarray) -> None:
+        self._rev = [int(x) for x in rev]
+        rev = np.asarray(rev, dtype=np.int64)
+        if len(rev) == 0 or (rev.min() >= 0 and rev.max() < self._TABLE_CAP):
+            # Rebuild the fast-path table (the mode is restored state too).
+            n = max(1024, int(rev.max(initial=0)) + 1)
+            self._table = np.zeros(n, dtype=np.int64)
+            self._table[rev] = 1 + np.arange(len(rev), dtype=np.int64)
+            self._keys = np.zeros(0, dtype=np.int64)
+            self._vals = np.zeros(0, dtype=np.int64)
+        else:
+            self._leave_table_mode()
+        self._fwd = {}
+        self._fwd_n = 0
+        # A same-length restore must drop the cache too (its length check
+        # alone would keep the old ids).
+        self._rev_arr = np.zeros(0, dtype=np.int64)

@@ -53,8 +53,10 @@ _register(TuningParameter(
 _register(TuningParameter(
     name="pipeline_depth", type="int", default=0, bounds=(0, 2),
     unit="windows", flag="--pipeline-depth",
-    doc="Sampled-but-unscored windows in flight; the port runs the "
-        "serial path (0) only so far."))
+    doc="Sampled-but-unscored windows in flight: 0 runs each window's "
+        "scorer stage on the caller thread; 1-2 run it on a worker thread "
+        "while the caller samples the next windows (bit-identical "
+        "output)."))
 _register(TuningParameter(
     name="max_pairs_per_step", type="int", default=1 << 20,
     bounds=(1, None), unit="cells",
