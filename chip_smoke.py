@@ -88,6 +88,7 @@ three kernels and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -537,7 +538,8 @@ def _kernel_entry(name, replaces, parity: Parity, run: dict) -> dict:
 CONFIG4 = dict(n_events=1_000_000, n_items=1_000_000, n_users=100_000,
                alpha=1.1, seed=4, events_per_ms=200)
 CONFIG4_JOB = dict(window_size=100, seed=4, item_cut=500, user_cut=500,
-                   top_k=10, backend="sparse")
+                   top_k=10, backend="sparse", cell_dtype="int32",
+                   wire_format="raw")
 #: Events of the config-4 prefix that phase 6 runs on both devices.
 PARITY_PREFIX = 400_000
 
@@ -640,14 +642,16 @@ def phase_rect_kernel(parity: Parity) -> None:
     _rect_class_cases(parity, rng)
 
 
-def _rect_class_cases(parity: Parity, rng) -> None:
+def _rect_class_cases(parity: Parity, rng, narrow=None) -> None:
     """Cases aimed at the size classes (a warp per short row, a block per
     long row): lengths at the class edges L - 1, L, L + 1, rows of 4,095
     to 12,293 cells and a 100,000-cell row in one block, rows whose cells
     all tie (one count, one partner row sum) in every class, so the
     earliest slots must win across warps and blocks, all-cancelled rows,
     and K = 1, 10, 128. Rows go in the scorer's bucket order; ids must
-    equal the plain version's on every finite lane."""
+    equal the plain version's on every finite lane. ``narrow``: a cell
+    dtype and its largest count, the cases run at that cell dtype
+    (:func:`_narrow_case`)."""
     from tpu_cooccurrence_torch.ops.rect_topk import (
         SHORT_MAX, min_rect_width, rect_topk, rect_topk_reference,
         score_buckets, short_rows)
@@ -678,10 +682,19 @@ def _rect_class_cases(parity: Parity, rng) -> None:
         rows = rng.choice(num_items, n, replace=False)
         n_short = short_rows(lens)
         t = _cuda_int32((cnt, dst, rs, rows, starts, lens))
-        got = rect_topk(*t, 1e8, k, n_short)
-        _, ki = parity.compare(
-            f"classes_S{n}_K{k} ({n_short} short rows, {n - n_short} long)",
-            got, rect_topk_reference(*t, 1e8, k), exact=True)
+        name = (f"classes_S{n}_K{k} ({n_short} short rows, {n - n_short} "
+                f"long)")
+        if narrow is not None:
+            cells = np.zeros(cap, dtype=bool)
+            for i in np.flatnonzero(tie):
+                cells[starts[i]:starts[i] + lens[i]] = True
+            _, ki = _narrow_case(parity, name, t, 1e8, k, n_short, *narrow,
+                                 rng, keep=cells)
+        else:
+            got = rect_topk(*t, 1e8, k, n_short)
+            _, ki = parity.compare(name, got,
+                                   rect_topk_reference(*t, 1e8, k),
+                                   exact=True)
         for i in np.flatnonzero(tie & (lens > 0)):
             want = dst[starts[i]:starts[i] + min(k, lens[i])]
             if ki[i, :len(want)].tolist() != want.tolist():
@@ -763,13 +776,15 @@ def _measure_rect(name, args):
                         device="cuda") for b, c in zip(buckets, counts)]
     topk_ms = _time_ms(lambda: [torch.topk(r, k, dim=1) for r in rects], 20)
     del rects
-    # Bound: each input byte once (cnt of every cell, dst and the partner
-    # row sum of every live cell, the row's meta and own sum) and the
-    # outputs once, against 8 f32 operations per live cell.
+    # Bound: each input byte once (cnt of every cell at the slab's cell
+    # width, dst and the partner row sum of every live cell, the row's
+    # meta and own sum) and the outputs once, against 8 f32 operations
+    # per live cell.
     cells = np.repeat(starts.astype(np.int64), lens) + _ragged_arange(lens)
     nnz = int((cnt.cpu().numpy()[cells] != 0).sum())
     s = rows.shape[0]
-    nbytes = 4 * len(cells) + 8 * nnz + 16 * s + 8 * s * k
+    nbytes = (cnt.element_size() * len(cells) + 8 * nnz + 16 * s
+              + 8 * s * k)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz * OPS_PER_CELL / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -1493,6 +1508,7 @@ def _commit_line(what):
     secs = REGISTRY.gauge(ckpt.COMMIT_SECONDS_GAUGE).get()
     print(f"    {what}: generation {gen}, commit {nbytes} bytes in "
           f"{secs:.4f} s", flush=True)
+    return nbytes, secs
 
 
 def _resume(card, path, cfg, csv, every, check):
@@ -1501,7 +1517,8 @@ def _resume(card, path, cfg, csv, every, check):
     first checkpoint commits (no finish()); restore a fresh job from the
     directory and finish from the source's restored position; hold it to
     ``check(job, what)``. Returns the dropped job (its state is the
-    checkpoint's) and the checkpoint directory."""
+    checkpoint's), the checkpoint directory and the first save's bytes
+    and seconds with the restore's seconds."""
     import torch
 
     from tpu_cooccurrence_torch.io.parse import batched_lines
@@ -1535,15 +1552,16 @@ def _resume(card, path, cfg, csv, every, check):
     print(f"  {card}: {path} run dropped after the window-{every} "
           f"checkpoint, {wall_a:.3f} s, at line {meta['current_line']} of "
           f"{os.path.basename(csv)}; launches {counts_a}", flush=True)
-    _commit_line("save")
+    save_bytes, save_s = _commit_line("save")
 
     b = CooccurrenceJob(cfg)
     b.source = FileMonitorSource(csv, b.counters)
     start = time.monotonic()
     b.restore(source=b.source)
     torch.cuda.synchronize()
-    print(f"    restore: {time.monotonic() - start:.4f} s, "
-          f"windows_fired {b.windows_fired}", flush=True)
+    restore_s = time.monotonic() - start
+    print(f"    restore: {restore_s:.4f} s, windows_fired "
+          f"{b.windows_fired}", flush=True)
 
     def rest():
         start = time.monotonic()
@@ -1556,7 +1574,8 @@ def _resume(card, path, cfg, csv, every, check):
     result = check(b, f"{path} resumed")
     print(f"  {path} resumed run {wall_b:.3f} s, launches {counts_b}: "
           f"{result}", flush=True)
-    return a, cfg.checkpoint_dir
+    return a, cfg.checkpoint_dir, dict(save_bytes=save_bytes,
+                                       save_s=save_s, restore_s=restore_s)
 
 
 def _corrupt_fallback(card, dropped, directory, check):
@@ -1594,7 +1613,9 @@ def _corrupt_fallback(card, dropped, directory, check):
           f"the dropped run's state: {result}", flush=True)
 
 
-def phase_pipeline_and_resume(card: str, chained_job, sparse_job) -> None:
+def phase_pipeline_and_resume(card: str, chained_job, sparse_job) -> dict:
+    """Returns the raw sparse checkpoint's save bytes and seconds and its
+    restore seconds."""
     import tempfile
 
     from tpu_cooccurrence_torch.config import Config
@@ -1612,7 +1633,7 @@ def phase_pipeline_and_resume(card: str, chained_job, sparse_job) -> None:
                      fused_window="on", pipeline_depth=2,
                      checkpoint_dir=os.path.join(tmp, "dense"),
                      checkpoint_every_windows=10)
-        dropped, _ = _resume(
+        dropped, _, _ = _resume(
             card, "fused", cfg, csv, 10,
             lambda job, what: f"state, counters and "
             f"{_dense_equal(job, chained_job, what)} rows exactly equal "
@@ -1632,11 +1653,389 @@ def phase_pipeline_and_resume(card: str, chained_job, sparse_job) -> None:
                     f"ids equal but on {swapped} lanes of exactly tied "
                     f"scores")
 
-        dropped, directory = _resume(card, "sparse", cfg, csv, 25,
-                                     sparse_check)
+        dropped, directory, raw_ckpt = _resume(card, "sparse", cfg, csv, 25,
+                                               sparse_check)
         print("  (d) a corrupted newest generation", flush=True)
         _corrupt_fallback(card, dropped, directory,
                           lambda job, what: sparse_check(job, what, dropped))
+    return raw_ckpt
+
+
+# -- phase 11: narrow cells, the packed uplink, the packed checkpoint ----
+
+
+#: The narrow slab cell dtypes and their largest count.
+NARROW = (("int16", 32_767), ("int8", 127))
+
+
+def _narrow_case(parity, name, t, observed, k, n_short, cell, top, rng,
+                 keep=None):
+    """One rect-kernel case at a narrow cell dtype: phase 5's int32 device
+    arrays ``t`` with the counts folded into [0, ``top``] (zeros stay
+    zero) and about 1% of the live cells outside ``keep`` set to ``top``.
+    The kernel must equal the plain version at that dtype bit for bit,
+    and the int32 kernel on the same counts; both kernels timed. Returns
+    the narrow kernel's ``(vals, idx)`` on the host."""
+    import torch
+
+    from tpu_cooccurrence_torch.ops.rect_topk import (rect_topk,
+                                                      rect_topk_reference)
+
+    cnt = t[0].cpu().numpy().astype(np.int64)
+    live = cnt != 0
+    cnt = np.where(live, 1 + (np.abs(cnt) - 1) % top, 0)
+    hit = live & (rng.random(len(cnt)) < 0.01)
+    if keep is not None:
+        hit &= ~keep
+    cnt[hit] = top
+    wide = [torch.from_numpy(cnt.astype(np.int32)).to("cuda"), *t[1:]]
+    narrow = [wide[0].to(getattr(torch, cell)), *t[1:]]
+    kv, ki = parity.compare(f"{cell} {name}",
+                            rect_topk(*narrow, observed, k, n_short),
+                            rect_topk_reference(*narrow, observed, k),
+                            exact=True)
+    wv, wi = (x.cpu().numpy() for x in rect_topk(*wide, observed, k,
+                                                   n_short))
+    if not (np.array_equal(kv, wv) and np.array_equal(ki, wi)):
+        _fail(f"{cell} {name}: the narrow kernel differs from the int32 "
+              f"kernel on the same counts")
+    ms = _time_ms(lambda: rect_topk(*narrow, observed, k, n_short), 20)
+    ms32 = _time_ms(lambda: rect_topk(*wide, observed, k, n_short), 20)
+    print(f"    time {cell} {name}: {int(hit.sum())} cells at {top}; "
+          f"kernel {ms:.4f} ms, int32 kernel on the same counts "
+          f"{ms32:.4f} ms", flush=True)
+    return kv, ki
+
+
+def _narrow_kernel_cases(parity: Parity) -> None:
+    """(a) ``rect_topk`` at int16 and int8 cells on phase 5's cases and
+    size classes: exact against the plain version and the int32 kernel,
+    with counts at the dtype's maximum, a 100k-cell row, ids above 2^24
+    and exact ties."""
+    from tpu_cooccurrence_torch.ops.rect_topk import short_rows
+
+    rng = np.random.default_rng(20261018)
+    big_ids = (1 << 24) + 4096
+    cases = [
+        ("tie_earliest_slot_K4", _tie_case(), 4),
+        ("S300_short_rows_K10", _rect_case(rng, 300, 4096, 12,
+                                           short_rows=100), 10),
+        ("S64_cancelled_cells_K128", _rect_case(rng, 64, 4096, 300,
+                                                zero_frac=0.5), 128),
+        ("S33_hot_row_100k_cells_K10", _rect_case(
+            rng, 33, 200_000, 3000, hot_len=100_000), 10),
+        ("S50_ids_above_2^24_K10", _rect_case(
+            rng, 50, big_ids, 400, id_base=1 << 24), 10),
+        ("S17_K1", _rect_case(rng, 17, 4096, 200), 1),
+    ]
+    for cell, top in NARROW:
+        for name, (arrays, observed), k in cases:
+            t = _cuda_int32(arrays)
+            _, ki = _narrow_case(parity, name, t, observed, k,
+                                 short_rows(np.asarray(arrays[5])), cell,
+                                 top, rng, keep=np.ones(len(arrays[0]),
+                                                        dtype=bool)
+                                 if name.startswith("tie") else None)
+            if name.startswith("tie") and ki[0].tolist() != [40, 30, 20, 10]:
+                _fail(f"{cell} {name}: ids {ki[0].tolist()} are not the "
+                      f"earliest slots' partners")
+            if "2^24" in name and not bool((ki >= 1 << 24).any()):
+                _fail(f"{cell} {name}: no partner id above 2^24 came out")
+        _rect_class_cases(parity, rng, narrow=(cell, top))
+
+
+class _Recorder:
+    """Patches the sparse scorer's ``encode_update`` and ``rect_topk``:
+    keeps the largest window's raw update buffer (most entries), the
+    arguments of the largest launch (most rows) over the narrow slab
+    (``cnt`` at ``dtype``) and the host seconds spent encoding."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self.upd = None
+        self.largest = {"s": -1}
+        self.encode_s = 0.0
+        self.windows = 0
+
+    def __enter__(self):
+        import torch
+
+        from tpu_cooccurrence_torch.state import sparse_scorer as ss
+
+        self._ss = ss
+        self._enc, self._rect = ss.encode_update, ss.rect_topk
+
+        def encode(upd, bounds, n):
+            start = time.perf_counter()
+            out = self._enc(upd, bounds, n)
+            self.encode_s += time.perf_counter() - start
+            self.windows += 1
+            if self.upd is None or upd.shape[1] > self.upd[0].shape[1]:
+                self.upd = (upd.copy(), tuple(bounds))
+            return out
+
+        def rect(*args):
+            if (args[0].dtype == self.dtype
+                    and args[3].shape[0] > self.largest["s"]):
+                self.largest.update(s=args[3].shape[0], args=tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args))
+            return self._rect(*args)
+
+        ss.encode_update, ss.rect_topk = encode, rect
+        return self
+
+    def __exit__(self, *exc):
+        self._ss.encode_update, self._ss.rect_topk = self._enc, self._rect
+        return False
+
+
+def _sparse_run(cfg, users, items, ts, recorder=None):
+    """One counted sparse run of ``cfg``; returns the job, its wall, its
+    launch counts and the ledger's snapshot."""
+    import torch
+
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+    from tpu_cooccurrence_torch.observability import LEDGER
+
+    def run():
+        LEDGER.reset()
+        job = CooccurrenceJob(cfg)
+        start = time.monotonic()
+        job.add_batch(users, items, ts)
+        job.finish()
+        torch.cuda.synchronize()
+        return job, time.monotonic() - start
+
+    if recorder is None:
+        (job, wall), counts = _counted("sparse", run)
+    else:
+        with recorder:
+            (job, wall), counts = _counted("sparse", run)
+    return job, wall, counts, LEDGER.snapshot()
+
+
+def _slab_line(job, wall, counts, ledger):
+    """Wall, pairs/s, promoted rows, slab bytes (both tables), uplink."""
+    from tpu_cooccurrence_torch.metrics import OBSERVED_COOCCURRENCES
+
+    sc = job.scorer
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    cells = len(sc.index)
+    wide = "no wide table"
+    if sc.index_w is not None:
+        n_w = len(sc.index_w)
+        wide = (f"wide table {sc.cnt_w.nbytes + sc.dst_w.nbytes} bytes "
+                f"({sc.capacity_w} cells, {n_w} live, "
+                f"{100 * n_w / max(cells + n_w, 1):.2f}% of the live "
+                f"cells)")
+    up = (f"uplink raw {ledger['uplink_raw_bytes']} bytes, encoded "
+          f"{ledger['uplink_enc_bytes']} "
+          f"({ledger['uplink_raw_bytes'] / ledger['uplink_enc_bytes']:.3f}x)"
+          if ledger["uplink_enc_bytes"] else "uplink raw")
+    return (f"wall {wall:.4f} s, {pairs / wall:.1f} pairs/s, "
+            f"{sc.promoted_rows} promoted rows; slab "
+            f"{sc.slab_device_bytes} device bytes: narrow "
+            f"{sc.cnt.nbytes + sc.dst.nbytes} bytes ({sc.capacity} cells "
+            f"of {sc.cnt.element_size() + 4} bytes, {cells} live), {wide}; "
+            f"{up}; h2d {ledger['h2d_bytes']} bytes in {ledger['h2d_calls']}"
+            f" calls; launches {counts}")
+
+
+def _config4_cells(card, sparse_job, parity: Parity) -> dict:
+    """(b)-(c) Config 4 at each (cell dtype, wire format), in turns, each
+    equal to phase 7's int32 raw run; the largest packed window decoded on
+    the card against the host; the int16 run's largest launch against
+    its plain version and as int32. Returns the int16 packed job."""
+    import torch
+
+    from tpu_cooccurrence_torch.config import Config
+    from tpu_cooccurrence_torch.ops import rect_topk as rt
+    from tpu_cooccurrence_torch.state import wire
+
+    users, items, ts = _config4_stream()
+    recs = {cell: _Recorder(getattr(torch, cell)) for cell, _ in NARROW}
+    runs = {}
+    for cell, fmt in (("int16", "packed"), ("int16", "raw"),
+                      ("int32", "raw"), ("int8", "packed"),
+                      ("int32", "raw"), ("int16", "raw"),
+                      ("int16", "packed"), ("int8", "packed")):
+        first = (cell, fmt) not in runs
+        cfg = Config(**{**CONFIG4_JOB, "cell_dtype": cell,
+                        "wire_format": fmt}, device="cuda")
+        job, wall, counts, ledger = _sparse_run(
+            cfg, users, items, ts,
+            recs[cell] if fmt == "packed" and first else None)
+        rows, swapped = _sparse_equal(job, sparse_job,
+                                      f"config 4 {cell} {fmt}",
+                                      ties_may_swap=cell != "int32")
+        print(f"  {card}: config 4 {cell} {fmt}: "
+              f"{_slab_line(job, wall, counts, ledger)}; state, counters "
+              f"and {rows} rows' scores exactly equal to phase 7's int32 "
+              f"raw run, ids equal but on {swapped} lanes of exactly tied "
+              f"scores", flush=True)
+        if cell == "int8" and job.scorer.promoted_rows <= 0:
+            _fail("config 4 at int8: no row promoted")
+        if first:
+            runs[(cell, fmt)] = job
+        else:
+            _sparse_equal(job, runs[(cell, fmt)], f"config 4 {cell} {fmt} "
+                          f"again")
+        del job
+    _sparse_equal(runs[("int16", "raw")], runs[("int16", "packed")],
+                  "config 4 int16 raw against packed")
+    for cell, rec in recs.items():
+        print(f"  {cell} packed: {rec.windows} encoded updates, "
+              f"{rec.encode_s:.4f} s of host encoding", flush=True)
+
+    upd, bounds = recs["int16"].upd
+    n = upd.shape[1]
+    start = time.perf_counter()
+    words_i, words_v, header = wire.encode_update(upd, bounds, n)
+    enc_ms = 1e3 * (time.perf_counter() - start)
+    wi = wire.words_tensor(words_i, "cuda")
+    wv = wire.words_tensor(words_v, "cuda")
+    got, got_b = wire.decode_update(wi, wv, header, n)
+    want, want_b = wire.decode_update_host(words_i, words_v, header, n)
+    if not (np.array_equal(got.cpu().numpy(), want)
+            and list(got_b) == want_b.tolist()):
+        _fail("the card's decode of config 4's largest window differs from "
+              "the host decode")
+    dec_ms = _time_ms(lambda: wire.decode_update(wi, wv, header, n), 20)
+    print(f"  decode: config 4's largest window ({n} entries, sections "
+          f"{bounds[0]}, {bounds[1] - bounds[0]}, {n - bounds[1]}; widths "
+          f"{int(header[1])}, {int(header[2])} bits) decoded on the card "
+          f"exactly equal to the host decode; {upd.nbytes} raw bytes, "
+          f"{wi.nbytes + wv.nbytes} encoded; host encode {enc_ms:.4f} ms, "
+          f"card decode {dec_ms:.4f} ms", flush=True)
+
+    for cell, rec in recs.items():
+        args = rec.largest["args"]
+        name = f"{cell} main_path_largest_launch_S{rec.largest['s']}"
+        parity.compare(name, rt.rect_topk(*args),
+                       rt.rect_topk_reference(*args[:8]), exact=True)
+        m = _measure_rect(name, args)
+        args32 = (args[0].to(torch.int32), *args[1:])
+        m32 = _measure_rect("the same launch at int32 cells", args32)
+        # In turns, narrow and int32 alike: a difference within their
+        # spread is none.
+        turns = [_time_ms(lambda a=a: rt.rect_topk(*a), 50)
+                 for a in (args, args32, args32, args)]
+        print(f"  {cell} largest launch: kernel {m['ms']:.4f} ms against "
+              f"{m32['ms']:.4f} ms at int32 (bounds {m['bound_ms']:.4f}, "
+              f"{m32['bound_ms']:.4f} ms); in turns {cell}, int32, int32, "
+              f"{cell}: {', '.join(f'{t:.4f}' for t in turns)} ms",
+              flush=True)
+    return runs[("int16", "packed")]
+
+
+def _bench_sparse(card) -> None:
+    """(d) Phase 4's bench stream through the sparse backend at int16
+    packed against int32 raw."""
+    from tpu_cooccurrence_torch.config import Config
+
+    users, items, ts = _bench_stream()
+    base = dict(window_size=100, seed=0xC0FFEE, item_cut=500, user_cut=500,
+                backend="sparse", device="cuda")
+    ref, wall, counts, ledger = _sparse_run(
+        Config(**base, cell_dtype="int32", wire_format="raw"), users, items,
+        ts)
+    print(f"  {card}: bench stream sparse int32 raw: "
+          f"{_slab_line(ref, wall, counts, ledger)}", flush=True)
+    job, wall, counts, ledger = _sparse_run(Config(**base), users, items, ts)
+    rows, swapped = _sparse_equal(job, ref, "bench stream int16 packed",
+                                  ties_may_swap=True)
+    top = int(job.scorer.row_sums_host.max())
+    none = ("" if job.scorer.promoted_rows else ": no row reaches 32,768, "
+            "none promotes (the int8 runs show promotion)")
+    print(f"  {card}: bench stream sparse at the defaults (int16 packed): "
+          f"{_slab_line(job, wall, counts, ledger)}; largest row sum "
+          f"{top}{none}; state, counters and {rows} rows' scores exactly "
+          f"equal to int32 raw, ids equal but on {swapped} lanes of "
+          f"exactly tied scores", flush=True)
+
+
+def _codec_of(directory):
+    """The ``ckpt_codec`` record of every generation in ``directory``."""
+    from tpu_cooccurrence_torch.state import checkpoint as ckpt
+
+    out = []
+    for gen, path in ckpt.generations(directory):
+        with np.load(path) as f:
+            meta = json.loads(f["meta_json"].tobytes().decode())
+        out.append((gen, meta.get("ckpt_codec")))
+    return out
+
+
+def phase_narrow_cells(card: str, parity: Parity, sparse_job,
+                       raw_ckpt: dict) -> None:
+    import tempfile
+
+    from tpu_cooccurrence_torch.config import Config
+
+    print("phase 11: narrow cells (int16, int8) with promotion, the packed "
+          "uplink and the packed checkpoint", flush=True)
+    print("  (a) rect_topk at narrow cells vs plain", flush=True)
+    _narrow_kernel_cases(parity)
+    print("  (b)-(c) config 4 at each cell dtype and wire format", flush=True)
+    ref = _config4_cells(card, sparse_job, parity)
+    print("  (d) the bench stream on the sparse backend", flush=True)
+    _bench_sparse(card)
+
+    print("  (e) config 4 at the defaults, depth 2", flush=True)
+    users, items, ts = _config4_stream()
+    cfg = Config(**{**CONFIG4_JOB, "cell_dtype": "int16",
+                    "wire_format": "packed"}, device="cuda")
+    job, wall, counts, ledger = _sparse_run(
+        dataclasses.replace(cfg, pipeline_depth=2), users, items, ts)
+    rows, _ = _sparse_equal(job, ref, "config 4 int16 packed depth 2")
+    print(f"  {card}: depth 2: {_stage_line(job, wall)}; launches {counts};"
+          f" slab, counters and {rows} rows exactly equal to depth 0",
+          flush=True)
+    del job
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "config4.csv")
+        _write_csv(csv, users, items, ts)
+        for cell in ("int16", "int8"):
+            print(f"  (f) resume on config 4 at {cell} packed, depth 2",
+                  flush=True)
+            directory = os.path.join(tmp, cell)
+            cell_ref = ref
+            if cell != "int16":
+                cell_ref, _, _, _ = _sparse_run(
+                    dataclasses.replace(cfg, cell_dtype=cell), users, items,
+                    ts)
+            run_cfg = dataclasses.replace(
+                cfg, cell_dtype=cell, pipeline_depth=2,
+                checkpoint_dir=directory, checkpoint_every_windows=25)
+
+            def check(job, what, want=cell_ref):
+                rows, swapped = _sparse_equal(job, want, what,
+                                              ties_may_swap=True)
+                return (f"slab, counters and {rows} rows' scores exactly "
+                        f"equal, ids equal but on {swapped} lanes of "
+                        f"exactly tied scores")
+
+            dropped, _, info = _resume(card, "sparse", run_cfg, csv, 25,
+                                       check)
+            codecs = _codec_of(directory)
+            if not codecs or not all(
+                    c and c["arrays"].get("scorer_rows_key", [""])[0] == "sdv"
+                    for _g, c in codecs):
+                _fail(f"{cell}: a generation lacks the packed ckpt_codec: "
+                      f"{codecs}")
+            promoted = dropped.scorer.promoted_rows
+            print(f"    {cell}: {promoted} rows promoted at the window-25 "
+                  f"checkpoint; generations {[g for g, _ in codecs]} carry "
+                  f"ckpt_codec {sorted(codecs[0][1]['arrays'])}; packed "
+                  f"save {info['save_bytes']} bytes in "
+                  f"{info['save_s']:.4f} s, restore {info['restore_s']:.4f} "
+                  f"s; raw (phase 10) {raw_ckpt['save_bytes']} bytes in "
+                  f"{raw_ckpt['save_s']:.4f} s, restore "
+                  f"{raw_ckpt['restore_s']:.4f} s", flush=True)
+            if cell == "int8" and promoted <= 0:
+                _fail("int8 resume: no row promoted before the checkpoint")
+            del dropped
 
 
 def main() -> int:
@@ -1684,7 +2083,9 @@ def main() -> int:
     expand_parity = ExpandParity()
     phase_expand_kernel(expand_parity)
     fused_run = phase_fused_main_path(expand_parity, card, main_run["job"])
-    phase_pipeline_and_resume(card, main_run["job"], sparse_run["job"])
+    raw_ckpt = phase_pipeline_and_resume(card, main_run["job"],
+                                         sparse_run["job"])
+    phase_narrow_cells(card, rect_parity, sparse_run["job"], raw_ckpt)
 
     for name, par in (("score_topk", parity), ("rect_topk", rect_parity),
                       ("expand_scatter", expand_parity)):

@@ -12,10 +12,10 @@ in arrival order), and the top-K keeps the earliest slot among equal
 scores, so there every score is bit-equal and every id whose score is
 unique in its row is equal (exact ties may order differently).
 
-Across packages both ways, dense and sparse (the JAX sparse default
-writes int16 cells through its packed ``ckpt_codec``, which the port
-decodes): the continuation's integer state equals the JAX uninterrupted
-run's exactly, and its rows are in ``topk_parity`` (``rtol=1e-5``,
+Across packages both ways, dense and sparse (at their defaults both
+write the packed ``ckpt_codec`` blobs, the sparse slab at int16 cells):
+the continuation's integer state equals the JAX uninterrupted run's
+exactly, and its rows are in ``topk_parity`` (``rtol=1e-5``,
 ``atol=1e-4``: XLA's and PyTorch's CPU ``log1p`` differ by a few ulps).
 
 Also: generations, retention and ``LATEST``; a torn newest generation is

@@ -9,16 +9,16 @@ dataset loader into the ``user,item,timestamp`` lines both CLIs read.
   render 4 decimals; ties order by the lowest column on both. The port's
   ``--fused-window on`` must equal its chained run and the JAX
   ``--backend device`` with the fused window on or off, byte for byte.
-- ``--backend sparse`` against the JAX package's ``--backend sparse``
-  (its default narrow cells and packed uplink are exact, so the int32 raw
-  port matches it): stdout byte-identical on the fixtures, with and
-  without ``--emit-updates``; ties order by the earliest slab slot on
-  both.
-- On a Zipf stream (10,000 events, 2,550 emitted rows) both backends
-  are byte-identical only within ``topk_parity``: torch and XLA round
-  ``log1p`` differently, so about 1% of the lines differ by one unit in
-  the 4th decimal. That test holds every emitted line to the JAX line in
-  the same place: same item, scores allclose, untied ids equal.
+- ``--backend sparse`` against the JAX package's ``--backend sparse``,
+  both at their defaults (int16 cells with promotion, the packed uplink):
+  stdout byte-identical on the fixtures, with and without
+  ``--emit-updates``; ties order by the earliest slab slot on both.
+- On a Zipf stream (10,000 events, 2,550 emitted rows) both backends,
+  and the sparse one at ``--cell-dtype int8``, are byte-identical only
+  within ``topk_parity``: torch and XLA round ``log1p`` differently, so
+  about 1% of the lines differ by one unit in the 4th decimal. That test
+  holds every emitted line to the JAX line in the same place: same item,
+  scores allclose, untied ids equal.
 - Against ``--backend oracle`` (float64): the comparator of
   ``tests/test_pipeline.py`` (``assert_latest_close``): scores to
   ``rtol=1e-4, atol=1e-3``, ids exact where every in-row gap exceeds
@@ -229,8 +229,8 @@ def test_port_sources_import_no_jax(path):
     ["--autoscale", "on"],
     ["--window-slide", "5"],
     ["-k", "129"],
-    ["--cell-dtype", "int16", "--backend", "sparse"],
-    ["--wire-format", "packed", "--backend", "sparse"],
+    ["--profile-dir", "d"],
+    ["--quarantine-file", "q"],
     ["--fixed-score", "on", "--backend", "sparse"],
     ["--spill-threshold-windows", "3", "--backend", "sparse"],
     ["--fused-window", "on", "--backend", "sparse"],
@@ -392,14 +392,18 @@ STREAM = dict(n_events=10_000, n_items=3_000, n_users=800, alpha=1.1,
 @pytest.mark.parametrize("port_args,jax_args", [
     (["--device", "cpu"], ["--backend", "device"]),
     (["--backend", "sparse", "--device", "cpu"], ["--backend", "sparse"]),
-], ids=["dense", "sparse"])
+    (["--backend", "sparse", "--cell-dtype", "int8", "--device", "cpu"],
+     ["--backend", "sparse", "--cell-dtype", "int8"]),
+], ids=["dense", "sparse", "sparse-int8"])
 def test_cli_matches_jax_on_a_zipf_stream(capsys, tmp_path, port_args,
                                           jax_args):
     """Every line the port emits stands where the JAX line does, for the
     same item, in ``topk_parity``: scores within ``rtol=1e-5`` plus
     ``atol=1e-4``, one unit in the rendered 4th decimal (a float32 score
     one ulp apart can round either way), and untied ids equal. The
-    latest rows then pass the tie-aware ``_assert_latest_close``."""
+    latest rows then pass the tie-aware ``_assert_latest_close``. At
+    ``--cell-dtype int8`` 83 rows of this stream promote to the wide
+    side-table on both sides."""
     users, items, ts = zipfian_interactions(**STREAM)
     path = tmp_path / "zipf.csv"
     with open(path, "w") as f:
@@ -455,10 +459,34 @@ def test_sparse_config_echo_names_the_resolved_cell_dtype(caplog, tmp_path):
     assert port_cli.main(["-i", path, "-ws", "1000000000", "--backend",
                           "sparse", "--device", "cpu",
                           "--score-ladder", "16"]) == 0
-    assert "cellDtype\tint32 (--cell-dtype auto; auto is int32" in (
-        caplog.text)
-    assert "wireFormat\traw" in caplog.text
+    # The JAX package's auto rule: int16 cells and the packed uplink on
+    # the sparse backend.
+    assert "cellDtype\tint16 (--cell-dtype auto)" in caplog.text
+    assert "wireFormat\tpacked (--wire-format auto)" in caplog.text
     assert "scoreLadder\t16" in caplog.text
+
+
+@pytest.mark.parametrize("field,value,message", [
+    ("cell_dtype", "int16", "--cell-dtype int16 is --backend sparse"),
+    ("cell_dtype", "int8", "--cell-dtype int8 is --backend sparse"),
+    ("wire_format", "packed", "--wire-format packed applies to the sparse"),
+])
+def test_narrow_cells_and_packed_are_sparse_only(caplog, tmp_path, field,
+                                                 value, message):
+    """As in the JAX package: off the sparse backend ``auto`` resolves to
+    int32 and raw, and an explicit narrow or packed request is refused
+    (exit 78) with the JAX package's message."""
+    path, _ = _fixture_csv(tmp_path, "u.data")
+    flag = "--" + field.replace("_", "-")
+    assert port_cli.main(["-i", path, "-ws", "100", "--device", "cpu",
+                          flag, value]) == port_cli.EX_CONFIG
+    assert message in caplog.text
+    with pytest.raises(ValueError, match=message):
+        JaxConfig(window_size=100, seed=1, backend=Backend.DEVICE,
+                  **{field: value})
+    cfg = PortConfig(window_size=100, device="cpu")
+    assert (cfg.resolved_cell_dtype, cfg.resolved_wire_format) == (
+        "int32", "raw")
 
 
 def test_bad_score_ladder_is_a_config_error(caplog, tmp_path):

@@ -214,6 +214,92 @@ def test_sparse_scorer_on_card_matches_cpu(card):
     assert ok and mism == 0, (ok, mism)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,top", [(torch.int16, 32_767),
+                                       (torch.int8, 127)])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_rect_kernel_narrow_cells_exact_on_card(card, dtype, top, k):
+    """At int16 and int8 cells (counts up to the dtype's maximum, rows in
+    both size classes, ties from few distinct counts) the kernel gives
+    the plain version's lanes bit for bit, and the plain version its
+    int32 result."""
+    cnt, dst, rs, rows, starts, lens, observed = _slab(16, 300, 4096, 3000)
+    rng = np.random.default_rng(17)
+    cnt = np.where(cnt != 0, rng.choice([1, 2, top - 1, top], len(cnt)),
+                   0).astype(np.int32)
+    dev = [torch.from_numpy(a).to(card) for a in
+           (cnt, dst, rs, rows, starts, lens)]
+    narrow = [dev[0].to(dtype), *dev[1:]]
+    before = rt.LAUNCHES
+    got = rt.rect_topk(*narrow, observed, k, rt.short_rows(lens))
+    assert rt.LAUNCHES == before + 1
+    want = rt.rect_topk_reference(*narrow, observed, k)
+    wide = rt.rect_topk_reference(*dev, observed, k)
+    for g, w, w32 in zip(got, want, wide):
+        assert torch.equal(g, w) and torch.equal(w, w32)
+
+
+@pytest.mark.cuda
+def test_decode_update_on_card_equals_host(card):
+    from tpu_cooccurrence_torch.state import wire
+
+    rng = np.random.default_rng(18)
+    n_new, n_d, n_rs = 700, 30_000, 900
+    upd = np.empty((2, n_new + n_d + n_rs), dtype=np.int32)
+    slots = rng.choice(1 << 24, n_new + n_d, replace=False)
+    upd[0, :n_new + n_d] = slots
+    upd[1, :n_new] = rng.integers(0, 1 << 30, n_new)
+    upd[1, n_new:n_new + n_d] = rng.integers(-(2**31), 2**31, n_d)
+    upd[0, n_new + n_d:] = rng.choice(1 << 20, n_rs, replace=False)
+    upd[1, n_new + n_d:] = rng.integers(-30000, 30000, n_rs)
+    words_i, words_v, header = wire.encode_update(upd, (n_new, n_new + n_d),
+                                                  upd.shape[1])
+    got, bounds = wire.decode_update(wire.words_tensor(words_i, card),
+                                     wire.words_tensor(words_v, card),
+                                     header, upd.shape[1] + 5)
+    want, want_b = wire.decode_update_host(words_i, words_v, header,
+                                           upd.shape[1] + 5)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert list(bounds) == want_b.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["int16", "int8"])
+def test_narrow_packed_scorer_on_card_matches_cpu(card, cell):
+    """Narrow cells with promotion and the packed uplink: the same
+    canonical state and promoted rows as on the CPU, rows in the same
+    order and in ``topk_parity``; one rect launch a window and one more
+    in each window that scores wide rows."""
+    rng = np.random.default_rng(19)
+    kw = dict(device=card, defer_results=False, capacity=1024,
+              compact_min_heap=256, cell_dtype=cell, wire_format="packed")
+    on_card = SparseDeviceScorer(10, **kw)
+    on_cpu = SparseDeviceScorer(10, **{**kw, "device": "cpu"})
+    before, wide_windows, outs = rt.LAUNCHES, 0, ([], [])
+    for _ in range(8):
+        src = (rng.pareto(1.1, 3000) * 5).astype(np.int64) % 400
+        dst = rng.integers(0, 400, 3000)
+        delta = np.ones(3000, dtype=np.int32)
+        src[0], dst[0], delta[0] = 0, 1, 12_000  # past 32,767 in window 3
+        for sc, out in zip((on_card, on_cpu), outs):
+            out.append(sc.process_window(0, PairDeltaBatch(
+                src.copy(), dst.copy(), delta.copy())))
+        wide_windows += int(on_cpu.wide_rows[np.unique(src)].any())
+    outs[0].append(on_card.flush())
+    outs[1].append(on_cpu.flush())
+    assert rt.LAUNCHES - before == 8 + wide_windows
+    assert on_card.promoted_rows == on_cpu.promoted_rows > 0
+    np.testing.assert_array_equal(on_card.wide_rows, on_cpu.wide_rows)
+    a, b = on_card.checkpoint_state(), on_cpu.checkpoint_state()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x.rows, y.rows)
+        ok, mism = st.topk_parity(x.vals, x.idx, y.vals, y.idx, rtol=RTOL,
+                                  atol=ATOL)
+        assert ok and mism == 0, (ok, mism)
+
+
 def _basket_ops(seed, n, w, num_items, hot_new=None):
     """Seeded star ops as a :class:`BasketBatch`: len 0 and len W ops,
     skips in range and past len, signs +-1, garbage past each len, and

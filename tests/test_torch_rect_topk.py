@@ -183,7 +183,8 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     np.testing.assert_array_equal(a[1], b[1].numpy())
 
 
-@pytest.mark.parametrize("bad", ["cnt_dtype", "meta_len", "dst_len", "k"])
+@pytest.mark.parametrize("bad", ["cnt_dtype", "meta_len", "dst_len", "k",
+                                 "dst_dtype"])
 def test_wrapper_rejects_bad_inputs(bad):
     cnt = torch.zeros(8, dtype=torch.int32)
     dst = torch.zeros(8, dtype=torch.int32)
@@ -197,6 +198,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         lens = torch.zeros(3, dtype=torch.int32)
     elif bad == "dst_len":
         dst = torch.zeros(9, dtype=torch.int32)
+    elif bad == "dst_dtype":  # only cnt takes a narrow cell dtype
+        dst = dst.to(torch.int16)
     else:
         k = 0
     with pytest.raises(ValueError):

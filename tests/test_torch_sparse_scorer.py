@@ -296,10 +296,16 @@ def test_wire_helpers_match_jax_and_auto_resolves_to_int32_raw():
     for mod in (wire, jax_wire):
         with pytest.raises(OverflowError):
             mod.checked_narrow(np.asarray([40_000]), np.int16)
-    # The port's auto rule: int32 cells and the raw uplink, exact either
-    # way; explicit values pass through as in the JAX package.
-    assert wire.resolve_cell_dtype("auto") == "int32"
-    assert wire.resolve_wire_format("auto") == "raw"
-    for flag in ("int32", "int16"):
-        assert wire.resolve_cell_dtype(flag) == jax_wire.resolve_cell_dtype(
-            flag, sparse_single_device=True)
+    # The JAX package's auto rule: int32 cells and the raw uplink off the
+    # sparse backend, int16 and packed on it; explicit values pass through.
+    for sparse in (False, True):
+        for flag in ("auto", "int32", "int16", "int8"):
+            assert wire.resolve_cell_dtype(flag, sparse) == (
+                jax_wire.resolve_cell_dtype(flag, sparse))
+        for flag in ("auto", "raw", "packed"):
+            assert wire.resolve_wire_format(flag, sparse) == (
+                jax_wire.resolve_wire_format(flag, sparse))
+    assert wire.resolve_cell_dtype("auto", False) == "int32"
+    assert wire.resolve_wire_format("auto", False) == "raw"
+    assert wire.resolve_cell_dtype("auto", True) == "int16"
+    assert wire.resolve_wire_format("auto", True) == "packed"

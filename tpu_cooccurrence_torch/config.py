@@ -85,8 +85,8 @@ class Config:
     device: str = "cuda"  # the card unless the caller asks for the CPU
     backend: str = "device"  # device | sparse | hybrid (alias of sparse)
     score_ladder: Optional[int] = None  # sparse bucket ladder; None = 4
-    cell_dtype: str = "auto"  # sparse slab cells; auto = int32 here
-    wire_format: str = "auto"  # sparse uplink; auto = raw here
+    cell_dtype: str = "auto"  # sparse slab cells; auto = int16 on sparse
+    wire_format: str = "auto"  # sparse uplink; auto = packed on sparse
     fused_window: str = "off"  # dense fused window; auto = on on cuda
     # Sampled-but-unscored windows in flight (0 = serial; pipeline.py).
     pipeline_depth: int = tuning.default("pipeline_depth")
@@ -112,6 +112,19 @@ class Config:
             if value not in _PORTED_VALUES[dest]:
                 raise NotPorted(f"{flag}={value} is not yet ported to "
                                 f"tpu_cooccurrence_torch")
+        if self.cell_dtype in ("int16", "int8") and not self.sparse:
+            # 'auto' resolves to int32 off the sparse backend; an explicit
+            # narrow request there must fail loudly.
+            raise ValueError(
+                f"--cell-dtype {self.cell_dtype} is --backend sparse "
+                f"without --coordinator only (multi-controller "
+                f"per-process snapshots carry no wide side-table "
+                f"blocks)")
+        if self.wire_format == "packed" and not self.sparse:
+            raise ValueError(
+                "--wire-format packed applies to the sparse backend's "
+                "update uplink (other backends ship raw COO or basket "
+                "formats)")
         if self.fused_window not in ("auto", "on", "off"):
             raise ValueError(f"--fused-window must be auto|on|off, got "
                              f"{self.fused_window!r}")
@@ -141,6 +154,17 @@ class Config:
         return self.backend in ("sparse", "hybrid")
 
     @property
+    def resolved_cell_dtype(self) -> str:
+        """``--cell-dtype`` as the JAX package resolves it: ``auto`` is
+        int16 on the (single-process) sparse backend, int32 elsewhere."""
+        return resolve_cell_dtype(self.cell_dtype, self.sparse)
+
+    @property
+    def resolved_wire_format(self) -> str:
+        """``--wire-format``: ``auto`` is packed on the sparse backend."""
+        return resolve_wire_format(self.wire_format, self.sparse)
+
+    @property
     def window_millis(self) -> int:
         return self.window_size * self.window_unit.millis
 
@@ -157,11 +181,10 @@ class Config:
         logger.info("buffer timeout\t%s", self.buffer_timeout)
         logger.info("backend\t%s", self.backend)
         if self.sparse:
-            logger.info("cellDtype\t%s (--cell-dtype %s; auto is int32 in "
-                        "the port)", resolve_cell_dtype(self.cell_dtype),
-                        self.cell_dtype)
-            logger.info("wireFormat\t%s",
-                        resolve_wire_format(self.wire_format))
+            logger.info("cellDtype\t%s (--cell-dtype %s)",
+                        self.resolved_cell_dtype, self.cell_dtype)
+            logger.info("wireFormat\t%s (--wire-format %s)",
+                        self.resolved_wire_format, self.wire_format)
             logger.info("scoreLadder\t%s", self.score_ladder
                         or tuning.default("score_ladder"))
         else:
@@ -358,14 +381,14 @@ _NOT_PORTED_FLAGS = (
 #: a flag that names a :class:`Config` field keeps its value there. The
 #: kernels always run on the card (``--pallas on``); ``--fused-window``
 #: is the dense backend's (the sparse one runs chained under ``auto``);
-#: the sparse slab holds int32 cells, takes the raw uplink and scores
+#: the sparse slab takes every cell dtype and wire format and scores
 #: variable shapes (eager PyTorch compiles nothing per shape, so
 #: ``--fixed-score`` has nothing to fix).
 _PORTED_VALUES = {
     "backend": ("device", "sparse", "hybrid"),
     "pallas": ("auto", "on"),
     "fused_window": ("auto", "on", "off"),
-    "cell_dtype": ("auto", "int32"),
-    "wire_format": ("auto", "raw"),
+    "cell_dtype": ("auto", "int32", "int16", "int8"),
+    "wire_format": ("auto", "raw", "packed"),
     "fixed_score": ("auto", "off"),
 }

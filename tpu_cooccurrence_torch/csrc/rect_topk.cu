@@ -34,13 +34,18 @@
 // Both select with the per-warp queue, threshold, buffer and merge of
 // topk_block.cuh.
 //
-// Bound on this card: 12 bytes per live cell (cnt, dst, row_sums[dst])
-// plus the per-row meta and outputs, against about 8 float32 operations
-// per cell (4 log1pf, 4 divisions) at the float32 rate; the bytes bound
-// is the larger. Most rows of a Zipf stream are a few dozen cells, so
-// per-row fixed work, not bytes, holds the kernel: the short class keeps
-// that to one warp's. Build without fast math and with -fmad=false so
-// every product and quotient rounds as in the plain PyTorch version.
+// Cells: `cnt` holds the slab's cell type, int32, int16 or int8 (the
+// sparse backend's --cell-dtype; a narrow cell is widened to int in
+// registers, exactly as the plain version casts it), one kernel a type.
+//
+// Bound on this card: 12 bytes per live cell at int32 cells (cnt, dst,
+// row_sums[dst]; 10 at int16, 9 at int8) plus the per-row meta and
+// outputs, against about 8 float32 operations per cell (4 log1pf, 4
+// divisions) at the float32 rate; the bytes bound is the larger. Most
+// rows of a Zipf stream are a few dozen cells, so per-row fixed work,
+// not bytes, holds the kernel: the short class keeps that to one warp's.
+// Build without fast math and with -fmad=false so every product and
+// quotient rounds as in the plain PyTorch version.
 
 #include "topk_block.cuh"
 
@@ -53,15 +58,17 @@ constexpr int kCellsAhead = 4;  // cells a thread loads before queueing
 // A scored row's slab region, or an empty row (all lanes (-inf, 0)) for a
 // row id outside row_sums or a region outside the slab: never a read out
 // of bounds.
+template <typename CellT>
 struct SlabRow {
-  const int32_t* crow;
+  const CellT* crow;
   const int32_t* drow;
   int len;
   bool valid;
 };
 
-__device__ __forceinline__ SlabRow slab_row(
-    const int32_t* cnt, const int32_t* dst, const int32_t* rows,
+template <typename CellT>
+__device__ __forceinline__ SlabRow<CellT> slab_row(
+    const CellT* cnt, const int32_t* dst, const int32_t* rows,
     const int32_t* starts, const int32_t* lens, int s, int num_items,
     long long cap) {
   const int r = rows[s];
@@ -70,21 +77,23 @@ __device__ __forceinline__ SlabRow slab_row(
   const bool valid = r >= 0 && r < num_items && start >= 0 && len >= 0 &&
                      static_cast<long long>(start) + len <= cap;
   const int off = valid ? start : 0;
-  return SlabRow{cnt + off, dst + off, valid ? len : 0, valid};
+  return SlabRow<CellT>{cnt + off, dst + off, valid ? len : 0, valid};
 }
 
 // Queue the nonzero cells of a row, `stride` threads walking it with this
 // thread at offset `t`; every lane of the warp calls.
+template <typename CellT>
 __device__ __forceinline__ void walk(WarpLists& w, Sel& sel,
-                                     const SlabRow& row, int t, int stride,
-                                     const RowScorer& sc, int top_k) {
+                                     const SlabRow<CellT>& row, int t,
+                                     int stride, const RowScorer& sc,
+                                     int top_k) {
   const int hi = row.len;
   for (int base = 0; base < hi; base += stride * kCellsAhead) {
     int c[kCellsAhead], d[kCellsAhead];
 #pragma unroll
     for (int u = 0; u < kCellsAhead; ++u) {
       const int j = base + u * stride + t;
-      c[u] = j < hi ? __ldg(row.crow + j) : 0;
+      c[u] = j < hi ? static_cast<int>(__ldg(row.crow + j)) : 0;
       d[u] = j < hi ? __ldg(row.drow + j) : 0;
     }
 #pragma unroll
@@ -97,9 +106,10 @@ __device__ __forceinline__ void walk(WarpLists& w, Sel& sel,
 
 // Write a finished list: scores, and the partner id of each chosen slab
 // position (0 for an empty lane).
+template <typename CellT>
 __device__ __forceinline__ void write_row(const float* lv, const int* lc,
-                                          const SlabRow& row, int s, int i0,
-                                          int stride, int top_k,
+                                          const SlabRow<CellT>& row, int s,
+                                          int i0, int stride, int top_k,
                                           float* out_vals, int32_t* out_idx) {
   for (int i = i0; i < top_k; i += stride) {
     const size_t o = static_cast<size_t>(s) * top_k + i;
@@ -110,8 +120,9 @@ __device__ __forceinline__ void write_row(const float* lv, const int* lc,
 
 // Blocks [0, num_rows - n_short): one long row each; blocks after them:
 // eight short rows each, one a warp.
+template <typename CellT>
 __global__ void __launch_bounds__(kThreads)
-rect_topk_kernel(const int32_t* __restrict__ cnt,
+rect_topk_kernel(const CellT* __restrict__ cnt,
                  const int32_t* __restrict__ dst,
                  const int32_t* __restrict__ row_sums,
                  const int32_t* __restrict__ rows,
@@ -133,8 +144,8 @@ rect_topk_kernel(const int32_t* __restrict__ cnt,
     if (idx >= n_short) return;
     const int s = n_short - 1 - idx;
     warp_init(w, sel, top_k);
-    const SlabRow row = slab_row(cnt, dst, rows, starts, lens, s, num_items,
-                                 cap);
+    const SlabRow<CellT> row = slab_row(cnt, dst, rows, starts, lens, s,
+                                        num_items, cap);
     if (row.valid) {
       const RowScorer sc{static_cast<float>(row_sums[rows[s]]), observed,
                          row_sums, num_items};
@@ -148,8 +159,8 @@ rect_topk_kernel(const int32_t* __restrict__ cnt,
 
   const int s = num_rows - 1 - static_cast<int>(blockIdx.x);
   warp_init(w, sel, top_k);
-  const SlabRow row = slab_row(cnt, dst, rows, starts, lens, s, num_items,
-                               cap);
+  const SlabRow<CellT> row = slab_row(cnt, dst, rows, starts, lens, s,
+                                      num_items, cap);
   if (row.valid) {
     const RowScorer sc{static_cast<float>(row_sums[rows[s]]), observed,
                        row_sums, num_items};
@@ -167,8 +178,9 @@ extern "C" {
 
 // Launches the kernel on `stream` for `num_rows` rows of a slab of `cap`
 // cells over `num_items` row sums, the first `n_short` of them one warp
-// each. Returns the CUDA error code of the launch (0 = launched).
-int rect_topk_launch(const int32_t* cnt, const int32_t* dst,
+// each; `cell_bytes` is the width of cnt's cells (4 = int32, 2 = int16,
+// 1 = int8). Returns the CUDA error code of the launch (0 = launched).
+int rect_topk_launch(const void* cnt, int cell_bytes, const int32_t* dst,
                      const int32_t* row_sums, const int32_t* rows,
                      const int32_t* starts, const int32_t* lens,
                      int num_rows, int num_items, long long cap,
@@ -180,9 +192,25 @@ int rect_topk_launch(const int32_t* cnt, const int32_t* dst,
   }
   if (num_rows == 0) return 0;
   const int blocks = num_rows - n_short + (n_short + kWarps - 1) / kWarps;
-  rect_topk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cnt, dst, row_sums, rows, starts, lens, num_rows, num_items, cap,
-      observed, top_k, n_short, out_vals, out_idx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cell_bytes == 4) {
+    rect_topk_kernel<int32_t><<<blocks, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(cnt), dst, row_sums, rows, starts, lens,
+        num_rows, num_items, cap, observed, top_k, n_short, out_vals,
+        out_idx);
+  } else if (cell_bytes == 2) {
+    rect_topk_kernel<int16_t><<<blocks, kThreads, 0, st>>>(
+        static_cast<const int16_t*>(cnt), dst, row_sums, rows, starts, lens,
+        num_rows, num_items, cap, observed, top_k, n_short, out_vals,
+        out_idx);
+  } else if (cell_bytes == 1) {
+    rect_topk_kernel<int8_t><<<blocks, kThreads, 0, st>>>(
+        static_cast<const int8_t*>(cnt), dst, row_sums, rows, starts, lens,
+        num_rows, num_items, cap, observed, top_k, n_short, out_vals,
+        out_idx);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

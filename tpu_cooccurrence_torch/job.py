@@ -100,11 +100,14 @@ class CooccurrenceJob:
             LOG.warning("--backend hybrid is retired; running the sparse "
                         "backend (checkpoints are interchangeable)")
         if cfg.sparse:
-            # int32 cells: the only --cell-dtype the config lets through.
+            # --cell-dtype / --wire-format auto: int16 cells and the packed
+            # uplink, as in the JAX package.
             return SparseDeviceScorer(
                 cfg.top_k, self.counters, cfg.development_mode,
                 score_ladder=cfg.score_ladder,
-                defer_results=not cfg.emit_updates, device=cfg.device)
+                defer_results=not cfg.emit_updates,
+                cell_dtype=cfg.resolved_cell_dtype,
+                wire_format=cfg.resolved_wire_format, device=cfg.device)
         # num_items == 0 derives the vocab from the data (the scorer
         # doubles C on growth); an explicit value is a hard capacity.
         return DeviceScorer(

@@ -107,7 +107,10 @@ class StepTimer:
 
 class TransferLedger:
     """Host<->device byte accounting: the scorer records every buffer it
-    ships up and every buffer it fetches down, at the call site."""
+    ships up and every buffer it fetches down, at the call site. Encoded
+    uploads (the sparse backend's packed uplink) also record the bytes
+    the raw layout would have shipped (``uplink_raw_bytes`` beside
+    ``uplink_enc_bytes``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -119,12 +122,25 @@ class TransferLedger:
             self.d2h_bytes = 0
             self.h2d_calls = 0
             self.d2h_calls = 0
+            self.uplink_raw_bytes = 0
+            self.uplink_enc_bytes = 0
 
     def up(self, *arrays) -> None:
         n = sum(int(a.nbytes) for a in arrays)
         with self._lock:
             self.h2d_bytes += n
             self.h2d_calls += 1
+
+    def up_encoded(self, raw_nbytes: int, *arrays) -> None:
+        """One encoded upload: ``arrays`` ship (counted on the h2d totals
+        like any upload); ``raw_nbytes`` is what the raw layout would have
+        shipped for the same window."""
+        n = sum(int(a.nbytes) for a in arrays)
+        with self._lock:
+            self.h2d_bytes += n
+            self.h2d_calls += 1
+            self.uplink_raw_bytes += int(raw_nbytes)
+            self.uplink_enc_bytes += n
 
     def down(self, *arrays) -> None:
         n = sum(int(a.nbytes) for a in arrays)
@@ -135,7 +151,9 @@ class TransferLedger:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return {"h2d_bytes": self.h2d_bytes, "h2d_calls": self.h2d_calls,
-                    "d2h_bytes": self.d2h_bytes, "d2h_calls": self.d2h_calls}
+                    "d2h_bytes": self.d2h_bytes, "d2h_calls": self.d2h_calls,
+                    "uplink_raw_bytes": self.uplink_raw_bytes,
+                    "uplink_enc_bytes": self.uplink_enc_bytes}
 
 
 #: Process-wide ledger the scorer records into.

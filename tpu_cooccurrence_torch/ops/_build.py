@@ -47,11 +47,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "score_topk_error_string": [_c_int],
     },
     "rect_topk": {
-        # cnt, dst, row_sums, rows, starts, lens, num_rows, num_items,
-        # cap, observed, top_k, n_short, out_vals, out_idx, stream
-        "rect_topk_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                             _c_void_p, _c_void_p, _c_int, _c_int,
-                             _c_longlong, _c_float, _c_int, _c_int,
+        # cnt, cell_bytes, dst, row_sums, rows, starts, lens, num_rows,
+        # num_items, cap, observed, top_k, n_short, out_vals, out_idx,
+        # stream
+        "rect_topk_launch": [_c_void_p, _c_int, _c_void_p, _c_void_p,
+                             _c_void_p, _c_void_p, _c_void_p, _c_int,
+                             _c_int, _c_longlong, _c_float, _c_int, _c_int,
                              _c_void_p, _c_void_p, _c_void_p],
         "rect_topk_error_string": [_c_int],
     },

@@ -12,6 +12,8 @@ is scored with :func:`~.llr.llr_stable`, a zero (cancelled) cell scores
 ``-inf``, and the row keeps its top K, scores descending, the earliest
 slab position winning among equal scores (``lax.top_k``'s rule on the
 slot-ordered rectangle). Lanes past a row's live cells are ``(-inf, 0)``.
+``cnt`` holds the slab's cell dtype (int32, int16 or int8, the sparse
+backend's ``--cell-dtype``); a count becomes float32 as it is scored.
 
 :func:`rect_topk` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel (``csrc/rect_topk.cu``), which takes every row length
@@ -92,10 +94,12 @@ def min_rect_width(top_k: int) -> int:
 def gather_rect(cnt, dst, row_sums, rows, starts, lens, R: int):
     """The ``[S, R]`` rectangle of the rows' slab cells.
 
-    Returns ``(k11i, valid, ds, rsj, rsi)``: counts int32, the live-cell
-    mask (zero cells are not scored), partner ids (0 where invalid),
-    partner row sums f32 (0 where invalid) and the rows' own sums as an
-    f32 column. Lanes past a row's length gather slot 0 and are masked.
+    Returns ``(k11i, valid, ds, rsj, rsi)``: counts at the slab's cell
+    dtype (as the reference package's ``gather_rect`` keeps them), the
+    live-cell mask (zero cells are not scored), partner ids (0 where
+    invalid), partner row sums f32 (0 where invalid) and the rows' own
+    sums as an f32 column. Lanes past a row's length gather slot 0 and
+    are masked.
     """
     col = torch.arange(R, device=cnt.device)[None, :]
     in_row = col < lens.long()[:, None]
@@ -137,10 +141,18 @@ def short_rows(lens: np.ndarray, short_max: int = SHORT_MAX) -> int:
     return int(over[0]) if len(over) else len(lens)
 
 
+#: Cell dtypes of the slab ``cnt`` (``--cell-dtype``); everything else
+#: the kernel reads is int32.
+_CELL_DTYPES = (torch.int32, torch.int16, torch.int8)
+
+
 def _check(cnt, dst, row_sums, rows, starts, lens, top_k: int) -> None:
+    if cnt.dtype not in _CELL_DTYPES or cnt.dim() != 1:
+        raise ValueError(f"cnt must be 1-D int32, int16 or int8, got "
+                         f"{cnt.dtype} {tuple(cnt.shape)}")
     for name, t in (("cnt", cnt), ("dst", dst), ("row_sums", row_sums),
                     ("rows", rows), ("starts", starts), ("lens", lens)):
-        if t.dtype != torch.int32 or t.dim() != 1:
+        if name != "cnt" and (t.dtype != torch.int32 or t.dim() != 1):
             raise ValueError(f"{name} must be 1-D int32, got {t.dtype} "
                              f"{tuple(t.shape)}")
         if t.device != cnt.device:
@@ -191,7 +203,8 @@ def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
     """Top-K LLR scores of sparse rows: the CUDA kernel on a card,
     :func:`rect_topk_reference` for CPU tensors (and only there).
 
-    cnt, dst  [cap] int32 slab cells (counts, partner ids)
+    cnt       [cap] int32, int16 or int8 slab counts (the cell dtype)
+    dst       [cap] int32 partner ids
     row_sums  [I]   int32
     rows      [S]   int32 row ids; starts, lens [S] int32 slab regions
     observed        total observed co-occurrences (fed as float32)
@@ -228,7 +241,8 @@ def rect_topk(cnt, dst, row_sums, rows, starts, lens, observed,
     with torch.cuda.device(cnt.device):
         stream = torch.cuda.current_stream(cnt.device).cuda_stream
         err = lib.rect_topk_launch(
-            *(t.data_ptr() for t in tensors), s, row_sums.shape[0],
+            cnt.data_ptr(), cnt.element_size(),
+            *(t.data_ptr() for t in tensors[1:]), s, row_sums.shape[0],
             cnt.shape[0], ctypes.c_float(np.float32(observed)), top_k,
             n_short, vals.data_ptr(), ids.data_ptr(), stream)
     if err != 0:

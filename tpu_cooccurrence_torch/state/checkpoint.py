@@ -29,8 +29,11 @@ Durability:
 * **Directory durability**: after the rename the directory itself is
   fsynced, so the new entry survives a power loss.
 
-The port writes the raw layout (its ``--wire-format auto`` is raw) and
-decodes the reference package's ``ckpt_codec`` blobs on restore. It
+Blob codec: under ``--wire-format auto`` or ``packed`` the sorted cell
+keys are written delta + varint and the nonnegative count arrays varint
+(``ckpt_codec`` in the meta, as the reference package writes them, on
+every backend); under ``raw`` every array is written as it is. Restore
+reads either layout from the meta. It
 refuses, with :class:`ValueError` and never in part, the reference
 package's checkpoints of features it does not carry: an incremental
 chain (``ckpt_delta``, ``delta*.bin``), multi-host epoch markers or
@@ -52,7 +55,8 @@ import numpy as np
 
 from ..metrics import RESCORED_ITEMS
 from ..observability.registry import REGISTRY
-from .wire import decode_sorted_u64, decode_varint
+from .wire import (checkpoint_codec, decode_sorted_u64, decode_varint,
+                   encode_sorted_u64, encode_varint)
 
 LOG = logging.getLogger("tpu_cooccurrence_torch.checkpoint")
 
@@ -284,6 +288,34 @@ def _config_meta(config) -> dict:
 # -- save / restore ----------------------------------------------------
 
 
+def _pack_blobs(arrays: dict, meta: dict) -> None:
+    """Encode, in place, the arrays the reference package's codec packs:
+    sorted nonnegative ``*rows_key`` as delta + varint (``sdv``), and
+    nonnegative ``*_cnt`` as varint (``v``), each a non-empty 1-D int64
+    array; the codec goes into ``meta["ckpt_codec"]``. An array that does
+    not qualify stays raw."""
+    packed = {}
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        if arr.ndim != 1 or arr.dtype != np.int64 or not len(arr):
+            continue
+        if name.endswith("rows_key"):
+            try:
+                packed[name] = ("sdv", len(arr), encode_sorted_u64(arr))
+            except ValueError:
+                continue  # not sorted or negative: stays raw
+        elif name.endswith("_cnt") and int(arr.min()) >= 0:
+            packed[name] = ("v", len(arr), encode_varint(arr))
+    if packed:
+        meta["ckpt_codec"] = {
+            "v": 1,
+            "arrays": {name: [spec, count]
+                       for name, (spec, count, _b) in packed.items()}}
+        for name, (_spec, _count, blob) in packed.items():
+            del arrays[name]
+            arrays[name + "__packed"] = blob
+
+
 def save(job, directory: str, source=None) -> str:
     """Write a checkpoint of ``job`` (and optionally its file source) as
     the next generation; returns its path."""
@@ -346,6 +378,9 @@ def save(job, directory: str, source=None) -> str:
     arrays["latest_offsets"] = np.asarray(lat_offsets, dtype=np.int64)
     arrays["latest_others"] = np.asarray(lat_others, dtype=np.int64)
     arrays["latest_scores"] = np.asarray(lat_scores, dtype=np.float64)
+
+    if checkpoint_codec(job.config.wire_format) == "packed":
+        _pack_blobs(arrays, meta)
 
     gens = generations(directory)
     gen = (gens[0][0] if gens else 0) + 1

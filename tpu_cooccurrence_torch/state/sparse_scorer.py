@@ -1,10 +1,10 @@
 """Device-resident sparse backend: slab matrix on the card, index on the host.
 
 Port of ``tpu_cooccurrence/state/sparse_scorer.py`` (the single-process
-chained path, int32 cells, raw uplink). It carries catalogues where a
-dense item x item ``C`` does not fit (at 1M items a dense int32 ``C`` is
-4 TB): the co-occurrence counts live in device memory as a slab, and only
-a window's folded deltas travel up.
+chained path). It carries catalogues where a dense item x item ``C`` does
+not fit (at 1M items a dense int32 ``C`` is 4 TB): the co-occurrence
+counts live in device memory as a slab, and only a window's folded deltas
+travel up.
 
 * **The host keeps the index, the device keeps the data.** The host holds
   the sorted packed-key array of all matrix cells (:class:`SlabIndex`)
@@ -15,19 +15,29 @@ a window's folded deltas travel up.
   an outgrown row is relocated on the device (the move instructions, old
   start, new start and length, are the only upload). Freed regions are
   reclaimed by an infrequent whole-heap compaction.
+* **Narrow cells** (``--cell-dtype int16|int8``, ``auto`` = int16): the
+  slab's counts are stored narrow, and a row whose sum reaches the
+  dtype's bound (``wire.cell_promote_threshold``) moves whole, before the
+  window's deltas apply, to a wide int32 side-table with its own index
+  (``index_w``, ``cnt_w``, ``dst_w``). No cell can saturate, so scores
+  equal an int32 slab's. A promoted row's cells are re-laid in key order.
+* **Packed uplink** (``--wire-format packed``, ``auto``): the window's
+  update buffer goes up bit-packed (``wire.encode_update``) and is decoded
+  on the card (``wire.decode_update``) into the same buffer the raw path
+  uploads, sorted inside each section.
 * **Scoring reads the slab.** Every updated row is scored by
-  :func:`~..ops.rect_topk.rect_topk` straight out of the slab
-  (``cnt``/``dst``) with the row sums resident too: the hand-written CUDA
-  kernel on a card, its plain PyTorch version on the CPU.
+  :func:`~..ops.rect_topk.rect_topk` straight out of the slab that holds
+  it (``cnt``/``dst``, or the wide pair) with the row sums resident too:
+  the hand-written CUDA kernel on a card, its plain PyTorch version on the
+  CPU. Narrow rows are scored first, then wide ones: the emitted order.
 
 Tie-breaking among equal scores: the earliest slab slot of the row, i.e.
 the earliest-inserted cell, as ``lax.top_k`` keeps the lowest index.
 
-Not ported yet: narrow cell dtypes and their wide side-table, the packed
-uplink, the tiered spill store (the direct store is a pass-through), the
-fused one-dispatch window, fixed-shape scoring, and the native hash-table
-cell index (``HashSlabIndex``; the sorted index has the same allocator,
-so slots and tie order do not change).
+Not ported yet: the tiered spill store (the direct store is a
+pass-through), the fused one-dispatch window, fixed-shape scoring, and the
+native hash-table cell index (``HashSlabIndex``; the sorted index has the
+same allocator, so slots and tie order do not change).
 
 Eager PyTorch compiles nothing per shape, so the reference package's
 pow2/pow4 transfer buckets and sentinel pads are gone: every upload and
@@ -37,7 +47,7 @@ scatter carries exactly its live entries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +64,12 @@ from ..ops.rect_topk import (MAX_TOP_K, ladder_bits, min_rect_width,
                              rect_topk, score_buckets, short_rows)
 from ..sampling.reservoir import _ragged_arange
 from .results import TopKBatch
-from .wire import checked_narrow
+from .wire import (CELL_DTYPES, cell_promote_threshold, checked_narrow,
+                   decode_update, encode_update, words_tensor)
+
+#: ``--cell-dtype`` values -> torch dtype of the slab ``cnt`` cells.
+_TORCH_CELLS = {"int32": torch.int32, "int16": torch.int16,
+                "int8": torch.int8}
 
 # -- device bodies (in place, on the slab's device) ------------------------
 
@@ -91,14 +106,19 @@ def _apply_cells(cnt: torch.Tensor, dst: torch.Tensor, upd: torch.Tensor,
     ``bounds``: ``[0, b0)`` new cells (slot, partner id) write ``dst`` and
     zero ``cnt`` (a slot may hold stale bytes of a freed region);
     ``[b0, b1)`` cell deltas (slot, +/-count) add into ``cnt``. Zeroing
-    precedes the add. Slots are distinct within a section, and
-    ``index_add_`` would be exact even if they were not.
+    precedes the add. Slots are distinct within a section, so the add is
+    a gather, a sum and a plain store: deterministic, and at a narrow cell
+    dtype no compare-and-swap loop. The sum is cast to the slab's dtype
+    (wrapping, as the reference package's ``astype``): exact by the
+    promotion invariant, since a row still on a narrow slab has a sum, so
+    every cell and delta, under the dtype's bound.
     """
     b0, b1 = bounds
     new_idx = upd[0, :b0].long()
     dst[new_idx] = upd[1, :b0]
     cnt[new_idx] = 0
-    cnt.index_add_(0, upd[0, b0:b1].long(), upd[1, b0:b1])
+    d_idx = upd[0, b0:b1].long()
+    cnt[d_idx] = (cnt[d_idx] + upd[1, b0:b1]).to(cnt.dtype)
 
 
 def _update_body(cnt: torch.Tensor, dst: torch.Tensor,
@@ -110,6 +130,17 @@ def _update_body(cnt: torch.Tensor, dst: torch.Tensor,
     _apply_cells(cnt, dst, upd, bounds)
     b1 = bounds[1]
     row_sums.index_add_(0, upd[0, b1:].long(), upd[1, b1:])
+
+
+def _promote_cells(cnt: torch.Tensor, dst: torch.Tensor, cnt_w: torch.Tensor,
+                   dst_w: torch.Tensor, src: torch.Tensor,
+                   out: torch.Tensor) -> None:
+    """Copy promoted rows' cells from the narrow slab (slots ``src``) into
+    the wide int32 side-table (slots ``out``), in place. The cast widens,
+    so it is exact for any narrow cell."""
+    s, o = src.long(), out.long()
+    cnt_w[o] = cnt[s].to(torch.int32)
+    dst_w[o] = dst[s]
 
 
 def _grow(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -532,6 +563,28 @@ class SlabIndex:
         """(sorted packed cell keys, matching slots): the checkpoint view."""
         return self.g_key, self.g_slot
 
+    def row_cells(self, rows: np.ndarray):
+        """Live cells of ``rows`` as ``(keys, slots)``, rows concatenated in
+        order, keys sorted within each row (the sorted layout's per-row
+        segments). Promotion reads a row's cells through this."""
+        lo = np.searchsorted(self.g_key, rows.astype(np.int64) << 32)
+        _s, lens, _c = self.rows.get(rows)
+        idx = np.repeat(lo, lens) + _ragged_arange(lens)
+        return self.g_key[idx], self.g_slot[idx]
+
+    def free_rows(self, rows: np.ndarray) -> None:
+        """Drop rows and their cells from the index (promotion moved them
+        to the wide side-table): the slab regions become garbage for the
+        next compaction, and the keys are deleted, so a freed key may
+        insert again later as a fresh cell."""
+        _s, lens, cap = self.rows.get(rows)
+        self.garbage += int(cap.sum())
+        lo = np.searchsorted(self.g_key, rows.astype(np.int64) << 32)
+        idx = np.repeat(lo, lens) + _ragged_arange(lens)
+        self.g_key = np.delete(self.g_key, idx)
+        self.g_slot = np.delete(self.g_slot, idx)
+        self.rows.clear(rows)
+
     def _allocate(self, new_key: np.ndarray):
         n_src = (new_key >> 32).astype(np.int64)
         rows_new, first_idx, counts = np.unique(
@@ -634,10 +687,12 @@ def make_slab_index(rows_capacity: int = 1 << 10) -> SlabIndex:
 
 
 class SparseDeviceScorer:
-    """Single-device scorer over a :class:`SlabIndex`-managed slab, with
-    int32 cells.
+    """Single-device scorer over a :class:`SlabIndex`-managed slab.
 
-    ``device`` defaults to the card; the CPU runs only when asked for.
+    ``cell_dtype`` (int32, int16, int8) is the slab's count dtype; a
+    narrow one adds the wide int32 side-table. ``wire_format`` (raw,
+    packed) is the update uplink's. ``device`` defaults to the card; the
+    CPU runs only when asked for.
     """
 
     # The pipelined window loop (pipeline.py) may hand this scorer
@@ -653,11 +708,26 @@ class SparseDeviceScorer:
                  compact_min_heap: int = 1 << 16,
                  score_ladder: Optional[int] = None,
                  defer_results: bool = False,
+                 cell_dtype: str = "int32",
+                 wire_format: str = "raw",
                  device="cuda") -> None:
+        if cell_dtype not in CELL_DTYPES:
+            raise ValueError(
+                f"cell_dtype must be one of {sorted(CELL_DTYPES)}, got "
+                f"{cell_dtype!r}")
+        if wire_format not in ("raw", "packed"):
+            raise ValueError(
+                f"wire_format must be raw or packed, got {wire_format!r}")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and top_k > MAX_TOP_K:
             raise ValueError(
                 f"--top-k {top_k} exceeds the CUDA kernel's {MAX_TOP_K}")
+        self.cell_dtype = cell_dtype
+        # Narrow-cell promotion bound (None for int32): a row whose sum
+        # reaches it moves to the wide side-table before this window's
+        # deltas apply.
+        self.promote_threshold = cell_promote_threshold(cell_dtype)
+        self.wire_packed = wire_format == "packed"
         self.top_k = top_k
         self.score_ladder = int(score_ladder if score_ladder is not None
                                 else tuning.default("score_ladder"))
@@ -671,7 +741,7 @@ class SparseDeviceScorer:
         self.row_sums_host = np.zeros(self.items_cap, dtype=np.int64)
         self.compact_min_heap = int(compact_min_heap)
         self.capacity = int(capacity)
-        self.cnt = torch.zeros(self.capacity, dtype=torch.int32,
+        self.cnt = torch.zeros(self.capacity, dtype=_TORCH_CELLS[cell_dtype],
                                device=self.device)
         self.dst = torch.zeros(self.capacity, dtype=torch.int32,
                                device=self.device)
@@ -679,9 +749,21 @@ class SparseDeviceScorer:
                                     device=self.device)
         self.observed = 0
         self.live_cells = 0  # exact count of allocated cells
+        # The wide int32 side-table of a narrow slab: its own index over
+        # the same row ids and its own slab pair. A row is entirely narrow
+        # or entirely wide, so scoring stays per row.
+        self.index_w = None
+        if self.promote_threshold is not None:
+            self.index_w = make_slab_index(items_capacity)
+            self.capacity_w = 1 << 10
+            self.cnt_w = torch.zeros(self.capacity_w, dtype=torch.int32,
+                                     device=self.device)
+            self.dst_w = torch.zeros(self.capacity_w, dtype=torch.int32,
+                                     device=self.device)
+            self.wide_rows = np.zeros(self.items_cap, dtype=bool)
         # One-window-deep result pipeline (--emit-updates): a window's
-        # (rows, vals, ids) are fetched while the next window runs.
-        self._pending: Optional[Tuple] = None
+        # [(rows, vals, ids), ...] are fetched while the next window runs.
+        self._pending: Optional[List[Tuple]] = None
         self.last_dispatched_rows = 0
         # Without --emit-updates the results wait in a device table until
         # flush() drains the rows scored since the last drain.
@@ -699,10 +781,17 @@ class SparseDeviceScorer:
         return self.index.compactions
 
     @property
+    def promoted_rows(self) -> int:
+        """Rows on the wide side-table (0 at int32 cells)."""
+        return int(self.wide_rows.sum()) if self.index_w is not None else 0
+
+    @property
     def slab_device_bytes(self) -> int:
-        """Device bytes of the slab (``cnt`` + ``dst``)."""
-        return (self.cnt.numel() * self.cnt.element_size()
-                + self.dst.numel() * self.dst.element_size())
+        """Device bytes of the slab (``cnt`` + ``dst``, narrow and wide)."""
+        slabs = [self.cnt, self.dst]
+        if self.index_w is not None:
+            slabs += [self.cnt_w, self.dst_w]
+        return sum(t.numel() * t.element_size() for t in slabs)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         LEDGER.up(arr)
@@ -720,6 +809,10 @@ class SparseDeviceScorer:
         grown[: len(self.row_sums_host)] = self.row_sums_host
         self.row_sums_host = grown
         self.row_sums = _grow(self.row_sums, new_cap)
+        if self.index_w is not None:
+            wide = np.zeros(new_cap, dtype=bool)
+            wide[: len(self.wide_rows)] = self.wide_rows
+            self.wide_rows = wide
         self.items_cap = new_cap
         if self._results is not None:
             self._results.resize(new_cap)
@@ -733,6 +826,16 @@ class SparseDeviceScorer:
         self.cnt = _grow(self.cnt, new_cap)
         self.dst = _grow(self.dst, new_cap)
         self.capacity = new_cap
+
+    def _ensure_heap_w(self, need_end: int) -> None:
+        if need_end <= self.capacity_w:
+            return
+        new_cap = self.capacity_w
+        while new_cap < need_end:
+            new_cap *= 2
+        self.cnt_w = _grow(self.cnt_w, new_cap)
+        self.dst_w = _grow(self.dst_w, new_cap)
+        self.capacity_w = new_cap
 
     # -- the window step --------------------------------------------------
 
@@ -755,6 +858,12 @@ class SparseDeviceScorer:
             gmap = self.index.compact()
             self.cnt, self.dst = _compact_gather(
                 self.cnt, self.dst, self._to_device(gmap), self.capacity)
+        if (self.index_w is not None
+                and self.index_w.needs_compaction(self.compact_min_heap)):
+            gmap = self.index_w.compact()
+            self.cnt_w, self.dst_w = _compact_gather(
+                self.cnt_w, self.dst_w, self._to_device(gmap),
+                self.capacity_w)
         self._ensure_items(int(max(pairs.src.max(), pairs.dst.max())))
         if isinstance(pairs, AggregatedPairs):
             src_d, d_val, d_key = pairs.src, pairs.delta, pairs.key
@@ -778,31 +887,88 @@ class SparseDeviceScorer:
         self.observed += window_sum
         self.counters.add(ROW_SUM_PROCESS_WINDOW, window_sum)
 
-        self._window_update(d_key, d_val32, rows, rs_delta)
+        # Promotion, then the per-slab split: a cell goes to the slab of
+        # its row, decided before this window's deltas apply. The narrow
+        # update carries the row sums; the wide one none.
+        cell_wide = None
+        if self.index_w is not None:
+            self._promote_rows(rows)
+            cell_wide = self.wide_rows[src_d]
+        if cell_wide is not None and cell_wide.any():
+            self._window_update(d_key[~cell_wide], d_val32[~cell_wide],
+                                rows, rs_delta)
+            self._window_update(d_key[cell_wide], d_val32[cell_wide],
+                                rows[:0], rs_delta[:0], wide=True)
+        else:
+            self._window_update(d_key, d_val32, rows, rs_delta)
         if self.development_mode:
             self._check_row_sums(rows)
 
         self.counters.add(RESCORED_ITEMS, len(rows))
         self.last_dispatched_rows = len(rows)
-        scored = self._dispatch_scoring(rows)
+        if self.index_w is not None and self.wide_rows[rows].any():
+            wmask = self.wide_rows[rows]
+            scored = (self._dispatch_scoring(rows[~wmask])
+                      + self._dispatch_scoring(rows[wmask], wide=True))
+        else:
+            scored = self._dispatch_scoring(rows)
         if self.defer_results:
             return TopKBatch.empty(self.top_k)
         prev, self._pending = self._pending, scored
         return self._materialize(prev)
 
+    def _promote_rows(self, rows: np.ndarray) -> None:
+        """Move rows whose (already updated) sum reached the narrow bound
+        to the wide side-table, before this window's deltas touch them:
+        no cell can saturate. Their cells enter the wide index in key
+        order."""
+        sel = ((self.row_sums_host[rows] >= self.promote_threshold)
+               & ~self.wide_rows[rows])
+        if not sel.any():
+            return
+        newly = rows[sel]
+        self.wide_rows[newly] = True
+        keys, slots = self.index.row_cells(newly)
+        self.index.free_rows(newly)
+        if not len(keys):
+            return  # a row past the bound in its first window: no cells yet
+        order = np.argsort(keys, kind="stable")
+        plan_w = self.index_w.apply(keys[order])
+        self._ensure_heap_w(self.index_w.heap_end)
+        _promote_cells(self.cnt, self.dst, self.cnt_w, self.dst_w,
+                       self._to_device(slots[order].astype(np.int32)),
+                       self._to_device(plan_w.slots))
+
     def _window_update(self, d_key: np.ndarray, d_val32: np.ndarray,
-                       rows: np.ndarray, rs_delta: np.ndarray) -> None:
-        """Allocate slots and apply the window: moves, then new-cell
-        zeroing, then the delta add, then the row sums."""
-        plan = self.index.apply(d_key)
-        self._ensure_heap(self.index.heap_end)
+                       rows: np.ndarray, rs_delta: np.ndarray,
+                       wide: bool = False) -> None:
+        """Allocate slots and apply the window to one slab (the wide
+        side-table with ``wide``): moves, then new-cell zeroing, then the
+        delta add, then the row sums. Packed: the buffer goes up encoded
+        and is decoded on the slab's device."""
+        index = self.index_w if wide else self.index
+        plan = index.apply(d_key)
+        if wide:
+            self._ensure_heap_w(index.heap_end)
+            cnt, dst = self.cnt_w, self.dst_w
+        else:
+            self._ensure_heap(index.heap_end)
+            cnt, dst = self.cnt, self.dst
         self.live_cells += plan.n_new
         if plan.mv is not None:
-            _moves_body(self.cnt, self.dst, self._to_device(plan.mv),
+            _moves_body(cnt, dst, self._to_device(plan.mv),
                         int(plan.mv[2].astype(np.int64).sum()))
         upd, bounds = self._pack_update(plan, d_key, d_val32, rows, rs_delta)
-        _update_body(self.cnt, self.dst, self.row_sums,
-                     self._to_device(upd), bounds)
+        if self.wire_packed:
+            words_i, words_v, header = encode_update(upd, bounds,
+                                                     upd.shape[1])
+            wi = words_tensor(words_i, self.device)
+            wv = words_tensor(words_v, self.device)
+            LEDGER.up_encoded(upd.nbytes, wi, wv)
+            upd_t, bounds = decode_update(wi, wv, header, upd.shape[1])
+        else:
+            upd_t = self._to_device(upd)
+        _update_body(cnt, dst, self.row_sums, upd_t, bounds)
 
     @staticmethod
     def _pack_update(plan: AllocPlan, d_key: np.ndarray,
@@ -821,34 +987,45 @@ class SparseDeviceScorer:
         upd[1, n_new + n_d:] = rs_delta.astype(np.int32)
         return upd, (n_new, n_new + n_d)
 
-    def _dispatch_scoring(self, rows: np.ndarray) -> Optional[Tuple]:
-        """Score ``rows``: one :func:`rect_topk` call over all of them, in
-        the reference package's length-bucket order (the order rows are
+    def _dispatch_scoring(self, rows: np.ndarray, wide: bool = False
+                          ) -> List[Tuple]:
+        """Score ``rows`` out of one slab (the wide side-table with
+        ``wide``): one :func:`rect_topk` call over all of them, in the
+        reference package's length-bucket order (the order rows are
         emitted in; the kernel starts the longest rows first). Returns
-        ``(rows, vals, ids)``, or None once scattered into the deferred
-        table."""
-        starts, lens, _caps = self.index.rows.get(rows)
+        ``[(rows, vals, ids)]``, or ``[]`` once scattered into the
+        deferred table."""
+        if len(rows) == 0:
+            return []
+        index, cnt, dst = ((self.index_w, self.cnt_w, self.dst_w) if wide
+                           else (self.index, self.cnt, self.dst))
+        starts, lens, _caps = index.rows.get(rows)
         _bucket, order = score_buckets(lens, min_rect_width(self.top_k),
                                        self.score_ladder)
         rows_o = rows[order].astype(np.int32)
         meta = self._to_device(np.stack([rows_o, starts[order],
                                          lens[order]]).astype(np.int32))
-        vals, ids = rect_topk(self.cnt, self.dst, self.row_sums, meta[0],
-                              meta[1], meta[2],
-                              float(np.float32(self.observed)), self.top_k,
-                              short_rows(lens[order]))
+        vals, ids = rect_topk(cnt, dst, self.row_sums, meta[0], meta[1],
+                              meta[2], float(np.float32(self.observed)),
+                              self.top_k, short_rows(lens[order]))
         if self.defer_results:
             self._results.scatter(meta[0], vals, ids)
             self._results.mark(rows)
-            return None
-        return rows_o, vals, ids
+            return []
+        return [(rows_o, vals, ids)]
 
     def _check_row_sums(self, rows: np.ndarray) -> None:
         """Dev-mode invariant: slab row contents sum to the tracked row sum
-        (reference check, ItemRowRescorerTwoInputStreamOperator.java:183-193)."""
-        cnt = self.cnt.cpu().numpy().astype(np.int64)
-        starts, lens, _ = self.index.rows.get(rows)
-        for r, s, ln in zip(rows.tolist(), starts.tolist(), lens.tolist()):
+        (reference check, ItemRowRescorerTwoInputStreamOperator.java:183-193),
+        on whichever slab holds the row."""
+        slabs = [(self.index, self.cnt.cpu().numpy().astype(np.int64))]
+        if self.index_w is not None:
+            slabs.append((self.index_w,
+                          self.cnt_w.cpu().numpy().astype(np.int64)))
+        for r in rows.tolist():
+            wide = self.index_w is not None and self.wide_rows[r]
+            index, cnt = slabs[int(wide)]
+            s, ln = int(index.row_start[r]), int(index.row_len[r])
             actual = int(cnt[s: s + ln].sum())
             if actual != int(self.row_sums_host[r]):
                 raise AssertionError(
@@ -865,30 +1042,41 @@ class SparseDeviceScorer:
         prev, self._pending = self._pending, None
         return self._materialize(prev)
 
-    def _materialize(self, scored: Optional[Tuple]) -> TopKBatch:
-        if scored is None:
+    def _materialize(self, scored: Optional[List[Tuple]]) -> TopKBatch:
+        if not scored:
             return TopKBatch.empty(self.top_k)
-        rows, vals, ids = scored
-        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        rows = np.concatenate([r for r, _, _ in scored])
+        vals = torch.cat([v for _, v, _ in scored]).cpu().numpy()
+        ids = torch.cat([i for _, _, i in scored]).cpu().numpy()
         LEDGER.down(vals, ids)
         return TopKBatch(rows, ids, vals)
 
     # -- checkpoint -------------------------------------------------------
 
+    def _cells(self, cnt: torch.Tensor, slots: np.ndarray) -> np.ndarray:
+        """The counts at ``slots``, gathered on the device (the fetch is
+        the cells, not the whole slab), as int64."""
+        if not len(slots):
+            return np.zeros(0, np.int64)
+        fetched = cnt[self._to_device(slots).long()].cpu().numpy()
+        LEDGER.down(fetched)
+        return fetched.astype(np.int64)
+
     def checkpoint_state(self) -> dict:
         """The canonical sparse snapshot, as the reference package writes
         it: sorted live cell keys ``rows_key`` (int64 ``row << 32 | dst``)
         and counts ``rows_cnt`` (int64, zero cells dropped), the exact row
-        sums (int64, one per item of the capacity) and ``observed``."""
+        sums (int64, one per item of the capacity) and ``observed``. The
+        narrow and wide slabs merge into one key order, so the file does
+        not depend on the cell dtype."""
         keys, slots = self.index.keys_and_slots()
-        if len(slots):
-            # Gather the live cells on the device: the fetch is the cells,
-            # not the whole slab.
-            fetched = self.cnt[self._to_device(slots).long()].cpu().numpy()
-            LEDGER.down(fetched)
-            vals = fetched.astype(np.int64)
-        else:
-            vals = np.zeros(0, np.int64)
+        vals = self._cells(self.cnt, slots)
+        if self.index_w is not None and len(self.index_w):
+            keys_w, slots_w = self.index_w.keys_and_slots()
+            keys = np.concatenate([keys, keys_w])
+            vals = np.concatenate([vals, self._cells(self.cnt_w, slots_w)])
+            order = np.argsort(keys, kind="stable")
+            keys, vals = keys[order], vals[order]
         nz = vals != 0
         return {
             "rows_key": keys[nz],
@@ -897,9 +1085,25 @@ class SparseDeviceScorer:
             "observed": np.asarray([self.observed], dtype=np.int64),
         }
 
+    def _rebuild_slab(self, index: SlabIndex, key: np.ndarray,
+                      cnt_vals: np.ndarray, capacity: int, dtype):
+        """A fresh contiguous slab for ``key``/``cnt_vals`` (rows in key
+        order) on the device; returns ``(cnt, dst, capacity)``."""
+        slots = index.rebuild_from_keys(key)
+        while capacity < index.heap_end:
+            capacity *= 2
+        cnt_host = np.zeros(capacity, dtype=dtype)
+        dst_host = np.zeros(capacity, dtype=np.int32)
+        cnt_host[slots] = checked_narrow(cnt_vals, dtype)
+        dst_host[slots] = (key & 0xFFFFFFFF).astype(np.int32)
+        return self._to_device(cnt_host), self._to_device(dst_host), capacity
+
     def restore_state(self, st: dict) -> None:
-        """Restore a canonical snapshot written by either package. The
-        slab is laid out afresh (rows contiguous in key order)."""
+        """Restore a canonical snapshot written by either package at any
+        cell dtype. The slabs are laid out afresh (rows contiguous in key
+        order); a row goes to the wide side-table when its restored sum
+        is at or past the bound (a row whose sum fell back under it fits
+        narrow again: every cell is at most the sum)."""
         key = np.asarray(st["rows_key"], dtype=np.int64)
         cnt_vals = np.asarray(st["rows_cnt"], dtype=np.int64)
         max_id = int(max((key >> 32).max(initial=0),
@@ -915,19 +1119,19 @@ class SparseDeviceScorer:
         self.row_sums_host = np.zeros(self.items_cap, dtype=np.int64)
         m = min(len(rs), self.items_cap)
         self.row_sums_host[:m] = rs[:m]
-        slots = self.index.rebuild_from_keys(key)
-        while self.capacity < self.index.heap_end:
-            self.capacity *= 2
-        cnt_host = np.zeros(self.capacity, dtype=np.int32)
-        dst_host = np.zeros(self.capacity, dtype=np.int32)
-        cnt_host[slots] = checked_narrow(cnt_vals, np.int32)
-        dst_host[slots] = (key & 0xFFFFFFFF).astype(np.int32)
-        self.cnt = self._to_device(cnt_host)
-        self.dst = self._to_device(dst_host)
+        if self.index_w is not None:
+            self.wide_rows = self.row_sums_host >= self.promote_threshold
+            wide = self.wide_rows[(key >> 32).astype(np.int64)]
+            self.cnt_w, self.dst_w, self.capacity_w = self._rebuild_slab(
+                self.index_w, key[wide], cnt_vals[wide], 1 << 10, np.int32)
+            key, cnt_vals = key[~wide], cnt_vals[~wide]
+        self.cnt, self.dst, self.capacity = self._rebuild_slab(
+            self.index, key, cnt_vals, self.capacity,
+            CELL_DTYPES[self.cell_dtype])
         self.row_sums = self._to_device(
             checked_narrow(self.row_sums_host, np.int32))
         self.observed = int(st["observed"][0])
-        self.live_cells = len(key)
+        self.live_cells = len(st["rows_key"])
         # In-flight results belong to windows before the checkpoint.
         self._pending = None
         if self._results is not None:
