@@ -81,9 +81,33 @@ fatal on failure:
    is quarantined and the restore falls back to the previous one, equal
    to the dropped run's state. Every save and restore prints its bytes
    and seconds.
+11. Narrow cells and the packed uplink: ``rect_topk`` at int16 and int8
+   cells against the plain version and the int32 kernel; config 4 at
+   every cell dtype and wire format, each exactly equal to phase 7's
+   int32 raw run (ids but on tied lanes of promoted rows); the card's
+   decode of the largest packed window; the bench stream on the sparse
+   backend; the defaults at depth 2; a packed resume at int16 and int8.
+12. The sharded dense backend (``--backend sharded``): (a)
+   ``score_topk_local`` against its plain version on the first and last
+   of four blocks of phase 2's edge cases (rows outside the block score
+   as empty rows) and on each of four blocks of a [20000, 20000] int32
+   and a [61440, 61440] int16 ``C`` (the first and last row of every
+   block among 2,048), ids exact on every finite lane; one block of each
+   timed. (b) The bench workload through ``CooccurrenceJob`` on the
+   sharded backend at D = 1 (the CLI's mesh), at D = 4 on one card
+   (derive from data, int32) and at D = 4 with ``--count-dtype int16
+   --num-items 61440`` (7.5 GB of ``C`` in four blocks), the score
+   kernel's count reset just before each run and read just after: every
+   run's counters, ``C`` blocks, row-sum replicas and rows exactly equal
+   to the dense run at the same flags (phase 4's, or a dense int16 run at
+   61,440 items); the local kernel timed at the shape the D = 4 run gave
+   it. (c) The bench stream from a CSV at D = 4, depth 2, dropped after
+   the window-10 checkpoint and restored at D = 1: exactly equal to
+   phase 4's run.
 
 The last lines: the card, a ``{"kernels": [...]}`` JSON line naming all
-three kernels and ``{"ok": true, "device": {...}}``.
+three kernels (``score_topk`` carries its local-block launches of phase
+12 under ``local``) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,18 +163,19 @@ def _time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def _bound(C, rows, k: int):
-    """Least time for the same work: bytes (C rows, row sums, rows and
-    the outputs, each once) over HBM rate vs 8 ops per nonzero cell of
-    the scored rows over the f32 rate. Returns (ms, "bytes" or
-    "operations", nonzero cells)."""
+def _bound(C, rows, k: int, row_lo: int = 0):
+    """Least time for the same work: bytes (the scored rows of ``C``, a
+    row block from global row ``row_lo``; row sums, rows and the outputs,
+    each once) over HBM rate vs 8 ops per nonzero cell of the scored rows
+    over the f32 rate. Returns (ms, "bytes" or "operations", nonzero
+    cells)."""
     import torch
 
-    s, n = rows.shape[0], C.shape[0]
+    s, n = rows.shape[0], C.shape[1]
     nbytes = s * n * C.element_size() + 4 * n + 4 * s + s * k * 8
     nnz = 0
     for lo in range(0, s, 1024):
-        nnz += int((C[rows[lo:lo + 1024].long()] != 0).sum(
+        nnz += int((C[rows[lo:lo + 1024].long() - row_lo] != 0).sum(
             dtype=torch.int64))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz * OPS_PER_CELL / FP32_OPS_PER_S * 1e3
@@ -158,13 +183,20 @@ def _bound(C, rows, k: int):
             else (t_ops, "operations", nnz))
 
 
-def _reference_chunked(C, rs, rows, observed, k, chunk=2048):
-    """The plain version in row chunks (bounds its [S, I] temporaries)."""
+def _reference_chunked(C, rs, rows, observed, k, chunk=2048, row_lo=None):
+    """The plain version in row chunks (bounds its [S, I] temporaries);
+    with ``row_lo``, the local one over the row block ``C`` from there."""
     import torch
 
-    from tpu_cooccurrence_torch.ops.score_topk import score_topk_reference
+    from tpu_cooccurrence_torch.ops.score_topk import (
+        score_topk_local_reference, score_topk_reference)
 
-    parts = [score_topk_reference(C, rs, rows[lo:lo + chunk], observed, k)
+    def plain(r):
+        if row_lo is None:
+            return score_topk_reference(C, rs, r, observed, k)
+        return score_topk_local_reference(C, rs, r, row_lo, observed, k)
+
+    parts = [plain(rows[lo:lo + chunk])
              for lo in range(0, rows.shape[0], chunk)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
@@ -289,23 +321,31 @@ def _full_width(n, s, dtype, seed):
     return C, rs, rows, observed
 
 
-def _measure(name, C, rs, rows, observed, k, reps=10):
-    """Kernel, plain and torch.topk-yardstick times plus the bound."""
+def _measure(name, C, rs, rows, observed, k, reps=10, row_lo=None):
+    """Kernel, plain and torch.topk-yardstick times plus the bound; with
+    ``row_lo``, ``score_topk_local`` over the row block ``C`` from
+    there."""
     import torch
 
-    from tpu_cooccurrence_torch.ops.score_topk import score_topk
+    from tpu_cooccurrence_torch.ops.score_topk import (score_topk,
+                                                       score_topk_local)
 
-    ms = _time_ms(lambda: score_topk(C, rs, rows, observed, k), reps)
+    if row_lo is None:
+        ms = _time_ms(lambda: score_topk(C, rs, rows, observed, k), reps)
+    else:
+        ms = _time_ms(lambda: score_topk_local(C, rs, rows, row_lo,
+                                               observed, k), reps)
     plain_ms = _time_ms(
-        lambda: _reference_chunked(C, rs, rows, observed, k), 3)
+        lambda: _reference_chunked(C, rs, rows, observed, k,
+                                   row_lo=row_lo), 3)
     # Yardstick for the selection alone: torch.topk on a materialized
     # [S, I] f32 score matrix (never called by the port).
-    scores = torch.rand((rows.shape[0], C.shape[0]), device="cuda")
+    scores = torch.rand((rows.shape[0], C.shape[1]), device="cuda")
     topk_ms = _time_ms(lambda: torch.topk(scores, k, dim=1), reps)
     del scores
-    bound_ms, bound_by, nnz = _bound(C, rows, k)
+    bound_ms, bound_by, nnz = _bound(C, rows, k, row_lo or 0)
     print(f"  time {name}: {nnz} nonzero cells of {rows.shape[0]} x "
-          f"{C.shape[0]}: kernel {ms:.4f} ms "
+          f"{C.shape[1]}: kernel {ms:.4f} ms "
           f"({nnz / ms / 1e6:.3f} G nonzero cells/s), plain {plain_ms:.4f} "
           f"ms, torch.topk yardstick {topk_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of "
@@ -1345,7 +1385,8 @@ def _fused_int16_run(parity: ExpandParity, card: str, users, items,
 #: The modules under ``ops/`` whose kernels each path launches.
 _PATH_KERNELS = {"chained": ("score_topk",),
                  "fused": ("expand", "score_topk"),
-                 "sparse": ("rect_topk",)}
+                 "sparse": ("rect_topk",),
+                 "sharded": ("score_topk",)}
 
 
 def _kernel_modules(path):
@@ -1511,21 +1552,22 @@ def _commit_line(what):
     return nbytes, secs
 
 
-def _resume(card, path, cfg, csv, every, check):
+def _resume(card, path, cfg, csv, every, check, make_first=None):
     """Run ``cfg`` over ``csv`` through the file source and the batcher,
     checkpointing every ``every`` windows; drop the run right after the
     first checkpoint commits (no finish()); restore a fresh job from the
     directory and finish from the source's restored position; hold it to
-    ``check(job, what)``. Returns the dropped job (its state is the
-    checkpoint's), the checkpoint directory and the first save's bytes
-    and seconds with the restore's seconds."""
+    ``check(job, what)``. ``make_first(cfg)`` builds the first job (by
+    default, as the resumed one: ``CooccurrenceJob(cfg)``). Returns the
+    dropped job (its state is the checkpoint's), the checkpoint directory
+    and the first save's bytes and seconds with the restore's seconds."""
     import torch
 
     from tpu_cooccurrence_torch.io.parse import batched_lines
     from tpu_cooccurrence_torch.io.source import FileMonitorSource
     from tpu_cooccurrence_torch.job import CooccurrenceJob
 
-    a = CooccurrenceJob(cfg)
+    a = (make_first or CooccurrenceJob)(cfg)
     save = a.checkpoint
 
     def checkpoint_then_drop(source=None):
@@ -2038,6 +2080,223 @@ def phase_narrow_cells(card: str, parity: Parity, sparse_job,
             del dropped
 
 
+# -- phase 12: the sharded dense backend ---------------------------------
+
+
+#: Shards of phase 12's explicit mesh (all on the one card).
+SHARDS = 4
+
+
+def _local_check(parity, name, C, rs, rows_np, lo, observed, k):
+    """``score_topk_local`` over the row block ``C`` (global rows from
+    ``lo``) against its plain version; ids exact on every finite lane."""
+    import torch
+
+    from tpu_cooccurrence_torch.ops.score_topk import score_topk_local
+
+    rows = torch.from_numpy(np.asarray(rows_np, dtype=np.int32)).to(
+        C.device)
+    return parity.compare(
+        name, score_topk_local(C, rs, rows, lo, observed, k),
+        _reference_chunked(C, rs, rows, observed, k, row_lo=lo), exact=True)
+
+
+def _local_kernel_cases(parity: Parity) -> None:
+    """(a) Kernel vs plain: the first and the last of four blocks of phase
+    2's edge cases (each case's rows lie all over the matrix, so most are
+    outside the block and score as empty rows; all-zero rows, K = 1 and
+    128, int16 wrapped); then each of four blocks of a [20000, 20000]
+    int32 and a [61440, 61440] int16 C, with 2,048 rows of the block,
+    its first and last row among them."""
+    import torch
+
+    rng = np.random.default_rng(20261019)
+    cases = [
+        ("I1007_K10_int32_zero_rows", 1007, 65, 10, np.int32,
+         dict(zero_rows=3)),
+        ("I2053_K128_int16_wrapped", 2053, 65, 128, np.int16,
+         dict(wrap=True, zero_rows=2)),
+        ("I3001_K1_int32", 3001, 65, 1, np.int32, {}),
+    ]
+    for name, n, s, k, dt, kw in cases:
+        C, rs, rows, observed, _ = _edge_case(rng, n, s, k, dt, **kw)
+        r = n // SHARDS
+        for d in (0, SHARDS - 1):
+            lo = d * r
+            picked = np.r_[lo, lo + r - 1, rows.cpu().numpy()]
+            kv, _ = _local_check(parity, f"local_{name}_block{d}",
+                                 C[lo:lo + r], rs, picked, lo, observed, k)
+            outside = (picked < lo) | (picked >= lo + r)
+            if not np.isneginf(kv[outside]).all():
+                _fail(f"local {name}: a row outside block {d} scored")
+    for name, n, dt, seed in (("I20000_int32", 20_000, torch.int32, 5),
+                              ("I61440_int16", 61_440, torch.int16, 6)):
+        C, rs, _, observed = _full_width(n, 1, dt, seed)
+        r = C.shape[0] // SHARDS
+        for d in range(SHARDS):
+            lo = d * r
+            inner = rng.choice(np.arange(lo + 1, lo + r - 1), 2046,
+                               replace=False)
+            picked = np.r_[lo, inner, lo + r - 1]
+            _local_check(parity, f"local_S2048_{name}_block{d}",
+                         C[lo:lo + r], rs, picked, lo, observed, 10)
+        rows = torch.from_numpy(picked.astype(np.int32)).to(C.device)
+        _measure(f"local_S2048_{name}_block{SHARDS - 1}", C[lo:lo + r], rs,
+                 rows, observed, 10, row_lo=lo)
+        del C, rs
+        torch.cuda.empty_cache()
+
+
+def _sharded_job(cfg, mesh):
+    """A job on a ``ShardedScorer`` over an explicit ``mesh`` (the CLI
+    builds its mesh from the visible cards, one shard each)."""
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+    from tpu_cooccurrence_torch.parallel.sharded import ShardedScorer
+
+    scorer = ShardedScorer(cfg.num_items, cfg.top_k, mesh=mesh,
+                           count_dtype=cfg.count_dtype)
+    job = CooccurrenceJob(cfg, scorer=scorer)
+    scorer.counters = job.counters  # the job's, as _make_scorer does
+    return job
+
+
+def _sharded_cfg(count_dtype, num_items, num_shards, **extra):
+    from tpu_cooccurrence_torch.config import Config
+
+    return Config(window_size=100, seed=0xC0FFEE, item_cut=500,
+                  user_cut=500, num_items=num_items, count_dtype=count_dtype,
+                  device="cuda", backend="sharded", num_shards=num_shards,
+                  **extra)
+
+
+def _sharded_equal(job, ref, what):
+    """Counters, observed, every block of ``C``, every row-sum replica and
+    every row of a sharded job exactly equal to a dense job's, on the
+    common capacity (zeros past it)."""
+    import torch
+
+    got = {k: v for k, v in job.counters.as_dict().items()
+           if k != "SplitReaderNumSplits"}
+    want = {k: v for k, v in ref.counters.as_dict().items()
+            if k != "SplitReaderNumSplits"}
+    if got != want:
+        _fail(f"{what}: counters differ {got} vs {want}")
+    a, b = job.scorer, ref.scorer
+    m = min(a.num_items, b.num_items)
+    if a.observed != b.observed or b.C[m:].any() or b.C[:, m:].any():
+        _fail(f"{what}: observed differs, or the dense C is not zero past "
+              f"{m}")
+    for d, blk in enumerate(a.C_loc):
+        lo = d * a.rows_per_shard
+        h = max(min(m - lo, blk.shape[0]), 0)
+        if (not torch.equal(blk[:h, :m], b.C[lo:lo + h, :m].to(blk.device))
+                or blk[h:].any() or blk[:, m:].any()):
+            _fail(f"{what}: block {d} of C differs")
+    for dev, rs in a.row_sums.items():
+        if (not torch.equal(rs[:m], b.row_sums[:m].to(dev)) or rs[m:].any()
+                or b.row_sums[m:].any()):
+            _fail(f"{what}: the row sums on {dev} differ")
+    ia, va, da = _rows_table(job, 10)
+    ib, vb, db = _rows_table(ref, 10)
+    if ia != ib or not np.array_equal(va, vb) or not np.array_equal(da, db):
+        _fail(f"{what}: rows differ (ids or float32 scores)")
+    return len(ia)
+
+
+def _sharded_path(card, what, cfg, mesh, ref, users, items, ts,
+                  profile=False):
+    """One counted run of ``cfg`` (``mesh`` None: the CLI's mesh), held
+    exactly to the dense job ``ref``; with ``profile``, the device's busy
+    share from a profiled second run. Returns the job and its launches."""
+    import torch
+
+    from tpu_cooccurrence_torch.job import CooccurrenceJob
+
+    def run():
+        job = (_sharded_job(cfg, mesh) if mesh is not None
+               else CooccurrenceJob(cfg))
+        start = time.monotonic()
+        job.add_batch(users, items, ts)
+        job.finish()
+        torch.cuda.synchronize()
+        return job, time.monotonic() - start
+
+    (job, wall), counts = _counted("sharded", run)
+    sc = job.scorer
+    rows = _sharded_equal(job, ref, what)
+    print(f"  {card}: {what}: {sc.n_shards} shards of {sc.rows_per_shard} "
+          f"x {sc.num_items} {sc.count_dtype.name} on "
+          f"{sorted({str(d) for d in sc.mesh})}; {_stage_line(job, wall)}; "
+          f"launches {counts}; state, counters and {rows} rows exactly "
+          f"equal to the dense run", flush=True)
+    if profile:
+        _device_profile(lambda: run()[1], wall)
+    return job, counts["score_topk"]
+
+
+def phase_sharded(card: str, parity: Parity, dense_job) -> dict:
+    """Returns the D = 4 int32 run's launches and the kernel's times at
+    the shape that run gave it."""
+    import tempfile
+
+    import torch
+
+    print("phase 12: the sharded dense backend (--backend sharded)",
+          flush=True)
+    _local_kernel_cases(parity)
+
+    print("  (b) the bench workload on the sharded backend", flush=True)
+    users, items, ts = _bench_stream()
+    one = [dense_job.scorer.device]  # the card of phase 4's run
+    job, _ = _sharded_path(card, "D=1 (the CLI's mesh), int32, 20000 items",
+                           _sharded_cfg("int32", 20_000, 1), None,
+                           dense_job, users, items, ts)
+    del job
+    job, launches = _sharded_path(
+        card, f"D={SHARDS} on one card, int32, derive from data",
+        _sharded_cfg("int32", 0, SHARDS), one * SHARDS, dense_job, users,
+        items, ts, profile=True)
+    sc = job.scorer
+    row_sums = sc.row_sums[sc.mesh[0]]
+    touched = torch.nonzero(row_sums[:sc.rows_per_shard]).flatten()
+    rows = touched[:sc.max_score_rows].to(torch.int32).contiguous()
+    observed = float(np.float32(sc.observed))
+    _local_check(parity, "local_main_path_final_state_block0", sc.C_loc[0],
+                 row_sums, rows.cpu().numpy(), 0, observed, sc.top_k)
+    m = _measure(f"local_main_path_S{rows.shape[0]}_R{sc.rows_per_shard}_"
+                 f"I{sc.num_items}_int32", sc.C_loc[0], row_sums, rows,
+                 observed, sc.top_k, row_lo=0)
+    del job, sc, row_sums
+    dense16, wall16 = _run_job("cuda", "int16", users, items, ts,
+                               num_items=61_440)
+    print(f"  {card}: dense int16, 61440 items (the reference): "
+          f"{_stage_line(dense16, wall16)}", flush=True)
+    job, _ = _sharded_path(
+        card, f"D={SHARDS} on one card, --count-dtype int16 --num-items "
+        f"61440", _sharded_cfg("int16", 61_440, SHARDS), one * SHARDS,
+        dense16, users, items, ts)
+    del job, dense16
+    torch.cuda.empty_cache()
+
+    print(f"  (c) resume: a D={SHARDS} run at depth 2 dropped after the "
+          f"window-10 checkpoint, restored at D=1", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "bench.csv")
+        _write_csv(csv, users, items, ts)
+        cfg = _sharded_cfg("int32", 20_000, 1, pipeline_depth=2,
+                           checkpoint_dir=os.path.join(tmp, "sharded"),
+                           checkpoint_every_windows=10)
+        dropped, _, _ = _resume(
+            card, "sharded", cfg, csv, 10,
+            lambda job, what: f"state, counters and "
+            f"{_sharded_equal(job, dense_job, what)} rows exactly equal to "
+            f"phase 4's dense run",
+            make_first=lambda c: _sharded_job(c, one * SHARDS))
+        del dropped
+    return dict(launches=launches, **m)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2086,14 +2345,27 @@ def main() -> int:
     raw_ckpt = phase_pipeline_and_resume(card, main_run["job"],
                                          sparse_run["job"])
     phase_narrow_cells(card, rect_parity, sparse_run["job"], raw_ckpt)
+    local_parity = Parity()
+    sharded_run = phase_sharded(card, local_parity, main_run["job"])
 
-    for name, par in (("score_topk", parity), ("rect_topk", rect_parity),
+    for name, par in (("score_topk", parity),
+                      ("score_topk (local block)", local_parity),
+                      ("rect_topk", rect_parity),
                       ("expand_scatter", expand_parity)):
         print(f"{name} parity: {par.cases} cases, max_abs_err "
               f"{par.max_abs_err:.3g}", flush=True)
+    score = _kernel_entry("score_topk", "pallas_score.py:57", parity,
+                          main_run)
+    # The same kernel over a local row block, as the sharded backend
+    # launches it (the reference's pallas_score_topk_local): launches of
+    # phase 12's D = 4 run, timed at the shape that run gave it.
+    local = _kernel_entry("score_topk", "pallas_score.py:172", local_parity,
+                          sharded_run)
+    score["local"] = {k: v for k, v in local.items()
+                      if k not in ("name", "route", "source")}
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        _kernel_entry("score_topk", "pallas_score.py:57", parity, main_run),
+        score,
         _kernel_entry("rect_topk", "pallas_score.py:214", rect_parity,
                       sparse_run),
         _kernel_entry("expand_scatter", "pallas_score.py:442",

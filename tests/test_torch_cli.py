@@ -175,7 +175,9 @@ def test_port_run_loads_no_jax(tmp_path):
         f"argv = ['-i', {path!r}, '-ws', '1000000000', '-s', '0xC0FFEE', "
         "'--device', 'cpu']\n"
         "rc = (cli.main(argv) or cli.main(argv + ['--backend', 'sparse'])\n"
-        "      or cli.main(argv + ['--fused-window', 'on']))\n"
+        "      or cli.main(argv + ['--fused-window', 'on'])\n"
+        "      or cli.main(argv + ['--backend', 'sharded', '--num-shards', "
+        "'2']))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu_cooccurrence'))\n"
         "print(json.dumps({'rc': rc, 'bad': bad}))\n")
@@ -216,7 +218,7 @@ def test_port_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "sharded"],
+    ["--backend", "sparse", "--num-shards", "2"],
     ["--backend", "oracle"],
     ["--pallas", "off"],
     ["--checkpoint-incremental"],

@@ -187,6 +187,75 @@ def test_score_kernel_ties_take_the_lowest_column_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 3])
+@pytest.mark.parametrize("dtype,k", [(np.int32, 10), (np.int16, 128)])
+def test_local_kernel_matches_plain_on_card(card, block, dtype, k):
+    """``score_topk_local`` over block ``block`` of four (513 rows of an
+    I = 2052 matrix: odd, so int16 rows start at every alignment): the
+    block's first and last rows, an all-zero row and rows outside the
+    block (empty rows), ids exact on every finite lane."""
+    n, r = 2052, 513
+    C, rs, _, observed = _case(20 + block, n, 1, dtype, wrap=dtype == np.int16)
+    lo = block * r
+    rng = np.random.default_rng(block)
+    rows = np.r_[lo, lo + r - 1, rng.choice(np.arange(lo + 1, lo + r - 1),
+                                           60, replace=False),
+                 0, lo - 2, lo - 1, (lo + r) % n].astype(np.int32)
+    C[rows[2]] = 0
+    c_loc = torch.from_numpy(C[lo:lo + r].copy()).to(card)
+    dev = [torch.from_numpy(a).to(card) for a in (rs, rows)]
+    before = st.LAUNCHES
+    got = st.score_topk_local(c_loc, *dev, lo, observed, k)
+    assert st.LAUNCHES == before + 1
+    want = st.score_topk_local_reference(c_loc, *dev, lo, observed, k)
+    torch.cuda.synchronize()
+    gv, gi, wv, wi = (t.cpu().numpy() for t in (*got, *want))
+    fin = np.isfinite(wv)
+    assert np.array_equal(np.isfinite(gv), fin)
+    assert np.array_equal(gv[fin], wv[fin]) and np.array_equal(gi[fin],
+                                                                wi[fin])
+    assert np.isneginf(gv[2]).all() and np.isneginf(gv[-4:]).all()
+    assert np.isfinite(gv[:2, 0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count_dtype", ["int32", "int16"])
+def test_sharded_scorer_on_one_card_matches_dense(card, count_dtype):
+    """Two shards on one card keep the dense scorer's integer state, and
+    their rows (one window late) equal the dense scorer's bit for bit."""
+    from tpu_cooccurrence_torch.parallel.sharded import ShardedScorer
+
+    rng = np.random.default_rng(9)
+    sharded = ShardedScorer(0, 10, count_dtype=count_dtype,
+                            mesh=[card, card])
+    dense = DeviceScorer(0, 10, count_dtype=count_dtype, device=card)
+    before = st.LAUNCHES
+    outs, wants = [], []
+    for hi in (300, 1500, 1500):
+        src = rng.integers(0, hi, 3000)
+        dst = rng.integers(0, hi, 3000)
+        delta = np.where(rng.random(3000) < 0.9, 1, -1).astype(np.int32)
+        delta[:20] = 20_000  # int16 counts wrap
+        batch = (src, dst, delta)
+        outs.append(sharded.process_window(0, PairDeltaBatch(
+            *(a.copy() for a in batch))))
+        wants.append(dense.process_window(0, PairDeltaBatch(
+            *(a.copy() for a in batch))))
+    outs.append(sharded.flush())
+    assert st.LAUNCHES - before >= 3 + 2 * 3
+    a, b = sharded.checkpoint_state(), dense.checkpoint_state()
+    n = min(len(a["row_sums"]), len(b["row_sums"]))
+    np.testing.assert_array_equal(a["C"][:n, :n], b["C"][:n, :n])
+    np.testing.assert_array_equal(a["row_sums"][:n], b["row_sums"][:n])
+    assert a["observed"] == b["observed"]
+    for got, want in zip(outs[1:], wants):
+        order = np.argsort(got.rows, kind="stable")
+        np.testing.assert_array_equal(got.rows[order], want.rows)
+        np.testing.assert_array_equal(got.vals[order], want.vals)
+        np.testing.assert_array_equal(got.idx[order], want.idx)
+
+
+@pytest.mark.cuda
 def test_sparse_scorer_on_card_matches_cpu(card):
     """The sparse scorer on the card keeps the same canonical state as on
     the CPU and launches the rect kernel once per window."""

@@ -59,6 +59,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except DeviceUnavailable as exc:
         LOG.error("device unavailable: %s", exc)
         return EX_UNAVAILABLE
+    except ValueError as exc:  # e.g. more shards than devices
+        LOG.error("configuration error: %s", exc)
+        return EX_CONFIG
     source = FileMonitorSource(config.input, job.counters,
                                process_continuously=config.process_continuously)
     # Checkpoints snapshot the source's position (job.source).

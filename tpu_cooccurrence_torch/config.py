@@ -8,11 +8,12 @@ default, or a value of :data:`_PORTED_VALUES`) raises :class:`NotPorted`
 (the CLI exits 78, ``EX_CONFIG``) naming the flag: nothing is silently
 ignored.
 
-Two backends are ported: ``device`` (the dense ``C``, with its fused
-window, ``--fused-window``) and ``sparse`` (the slab; ``hybrid`` is its
-retired alias), each with the pipelined window loop
-(``--pipeline-depth``) and full checkpoints (``--checkpoint-dir``). The
-port adds ``--device cuda|cpu`` (default ``cuda``).
+Three backends are ported: ``device`` (the dense ``C``, with its fused
+window, ``--fused-window``), ``sparse`` (the slab; ``hybrid`` is its
+retired alias) and ``sharded`` (the dense ``C`` row-sharded over
+``--num-shards`` devices of one process), each with the pipelined window
+loop (``--pipeline-depth``) and full checkpoints (``--checkpoint-dir``).
+The port adds ``--device cuda|cpu`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ class Config:
     emit_updates: bool = False
     process_continuously: bool = False
     device: str = "cuda"  # the card unless the caller asks for the CPU
-    backend: str = "device"  # device | sparse | hybrid (alias of sparse)
+    backend: str = "device"  # device | sparse | hybrid (alias) | sharded
+    num_shards: int = 1  # item-axis shards of --backend sharded
     score_ladder: Optional[int] = None  # sparse bucket ladder; None = 4
     cell_dtype: str = "auto"  # sparse slab cells; auto = int16 on sparse
     wire_format: str = "auto"  # sparse uplink; auto = packed on sparse
@@ -128,10 +130,23 @@ class Config:
         if self.fused_window not in ("auto", "on", "off"):
             raise ValueError(f"--fused-window must be auto|on|off, got "
                              f"{self.fused_window!r}")
+        if self.num_shards < 1:
+            raise ValueError(
+                f"--num-shards must be >= 1, got {self.num_shards}")
+        if self.sparse and self.num_shards > 1:
+            raise NotPorted(
+                f"--backend {self.backend} with --num-shards "
+                f"{self.num_shards} (the sharded sparse backend) is not "
+                f"yet ported to tpu_cooccurrence_torch")
         if self.fused_window == "on" and self.sparse:
             # The sparse fused window consumes folded deltas, not baskets.
             raise NotPorted("--fused-window on with --backend sparse is "
                             "not yet ported to tpu_cooccurrence_torch")
+        if self.fused_window == "on" and self.backend == "sharded":
+            raise ValueError(
+                f"--fused-window on is --backend device or sparse only "
+                f"(got {self.backend}); other backends stay on the "
+                f"chained path")
         if self.pipeline_depth not in (0, 1, 2):
             raise ValueError(
                 f"--pipeline-depth must be 0, 1 or 2, got "
@@ -190,6 +205,7 @@ class Config:
         else:
             logger.info("fusedWindow\t%s", self.fused_window)
         logger.info("numItems\t%s", self.num_items)
+        logger.info("numShards\t%s", self.num_shards)
         logger.info("device\t%s", self.device)
 
     @classmethod
@@ -228,6 +244,10 @@ class Config:
         p.add_argument("--num-items", type=int, default=0, dest="num_items",
                        help="Dense item-vocabulary capacity on the device "
                             "(0 = derive from data)")
+        p.add_argument("--num-shards", type=int, default=1,
+                       dest="num_shards",
+                       help="Item-axis shards of --backend sharded, one "
+                            "device each (default: 1)")
         p.add_argument("--count-dtype",
                        choices=list(tuning.get("count_dtype").choices),
                        default=tuning.default("count_dtype"),
@@ -318,7 +338,6 @@ _NOT_PORTED_FLAGS = (
     _flag("--ingest-partitions", **_INT0),
     _flag("--backend", default="device",
           choices=("oracle", "device", "sharded", "hybrid", "sparse")),
-    _flag("--num-shards", type=int, default=1),
     _flag("--window-slide", type=int, default=None),
     _flag("--profile-dir", **_STR),
     _flag("--journal", **_STR),
@@ -385,7 +404,7 @@ _NOT_PORTED_FLAGS = (
 #: variable shapes (eager PyTorch compiles nothing per shape, so
 #: ``--fixed-score`` has nothing to fix).
 _PORTED_VALUES = {
-    "backend": ("device", "sparse", "hybrid"),
+    "backend": ("device", "sparse", "hybrid", "sharded"),
     "pallas": ("auto", "on"),
     "fused_window": ("auto", "on", "off"),
     "cell_dtype": ("auto", "int32", "int16", "int8"),

@@ -1,7 +1,9 @@
 // Fused LLR scoring + streaming top-K over dense count rows, for Hopper.
 //
 // Replaces the Pallas TPU kernel `_score_topk_kernel`
-// (tpu_cooccurrence/ops/pallas_score.py), as called by `pallas_score_topk`.
+// (tpu_cooccurrence/ops/pallas_score.py), as called by `pallas_score_topk`
+// (the whole C) and by `pallas_score_topk_local` (the sharded backend: a
+// local row block of C at offset `row_lo`, against the global row sums).
 // For each of S scored rows r it builds, per column j, the f32 contingency
 //   k11 = C[r, j], k12 = rs[r] - k11, k21 = rs[j] - k11,
 //   k22 = observed + k11 - k12 - k21
@@ -12,7 +14,10 @@
 //
 // Design: one block of eight warps per scored row, reading row rows[s] of
 // C itself (no pre-gathered [S, I] copy) and carrying column ids as int32
-// (no f32-id vocabulary cap).
+// (no f32-id vocabulary cap). C holds the local rows [row_lo, row_lo +
+// local_rows) of the I x I matrix (the whole matrix: row_lo 0, local_rows
+// I); a global row r reads C at (r - row_lo) * I and its own sum at
+// row_sums[r], and a row outside the block is an empty row.
 // - Loads: the row's 16-byte-aligned body is read as int4 (4 int32 or
 //   8 int16 cells a load), neighbouring threads on neighbouring vectors,
 //   and each thread loads its next vector before it scores the current
@@ -55,7 +60,8 @@ __global__ void __launch_bounds__(kThreads)
 score_topk_kernel(const CountT* __restrict__ C,
                   const int32_t* __restrict__ row_sums,
                   const int32_t* __restrict__ rows, int num_items,
-                  float observed, int top_k, float* __restrict__ out_vals,
+                  int row_lo, int local_rows, float observed, int top_k,
+                  float* __restrict__ out_vals,
                   int32_t* __restrict__ out_idx) {
   __shared__ BlockLists sm;
   constexpr int kVec = 16 / sizeof(CountT);  // cells per int4
@@ -68,10 +74,11 @@ score_topk_kernel(const CountT* __restrict__ C,
   Sel sel;
   warp_init(w, sel, top_k);
   const int r = rows[s];
-  // A row id outside C yields an empty row (all lanes -inf), never a
-  // read out of bounds.
-  if (r >= 0 && r < num_items) {
-    const CountT* crow = C + static_cast<size_t>(r) * num_items;
+  const int lr = r - row_lo;  // the row in the local block
+  // A row id outside the block yields an empty row (all lanes -inf),
+  // never a read out of bounds.
+  if (r >= 0 && r < num_items && lr >= 0 && lr < local_rows) {
+    const CountT* crow = C + static_cast<size_t>(lr) * num_items;
     const RowScorer sc{static_cast<float>(row_sums[r]), observed, row_sums,
                        num_items};
     const int mis = static_cast<int>(
@@ -117,25 +124,28 @@ score_topk_kernel(const CountT* __restrict__ C,
 extern "C" {
 
 // Launches the kernel on `stream` for `num_rows` rows; `count_bytes` is
-// the width of C's cells (4 = int32, 2 = int16). Returns the CUDA error
-// code of the launch (0 = launched).
+// the width of C's cells (4 = int32, 2 = int16); C holds the
+// `local_rows` rows of the I x I matrix that start at global row
+// `row_lo`. Returns the CUDA error code of the launch (0 = launched).
 int score_topk_launch(const void* C, int count_bytes,
                       const int32_t* row_sums, const int32_t* rows,
-                      int num_rows, int num_items, float observed, int top_k,
+                      int num_rows, int num_items, int row_lo,
+                      int local_rows, float observed, int top_k,
                       float* out_vals, int32_t* out_idx, void* stream) {
-  if (top_k < 1 || top_k > kMaxK || num_rows < 0 || num_items < 0) {
+  if (top_k < 1 || top_k > kMaxK || num_rows < 0 || num_items < 0 ||
+      row_lo < 0 || local_rows < 0 || row_lo > num_items - local_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (count_bytes == 4) {
     score_topk_kernel<int32_t><<<num_rows, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(C), row_sums, rows, num_items, observed,
-        top_k, out_vals, out_idx);
+        static_cast<const int32_t*>(C), row_sums, rows, num_items, row_lo,
+        local_rows, observed, top_k, out_vals, out_idx);
   } else if (count_bytes == 2) {
     score_topk_kernel<int16_t><<<num_rows, kThreads, 0, st>>>(
-        static_cast<const int16_t*>(C), row_sums, rows, num_items, observed,
-        top_k, out_vals, out_idx);
+        static_cast<const int16_t*>(C), row_sums, rows, num_items, row_lo,
+        local_rows, observed, top_k, out_vals, out_idx);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,10 @@
 """The job: ingest -> windowing -> sampling -> device scoring.
 
 Port of ``tpu_cooccurrence/job.py`` with the dense (``--backend device``,
-chained or ``--fused-window``) and the sparse slab (``--backend sparse``)
-scorers, serial or pipelined (``--pipeline-depth``, ``pipeline.py``), and
-full checkpoints (``--checkpoint-dir``, ``state/checkpoint.py``).
+chained or ``--fused-window``), the sparse slab (``--backend sparse``) and
+the row-sharded dense (``--backend sharded``) scorers, serial or
+pipelined (``--pipeline-depth``, ``pipeline.py``), and full checkpoints
+(``--checkpoint-dir``, ``state/checkpoint.py``).
 The host streams micro-batches through the window engine and the
 vectorized cut operators, and each fired window becomes one scorer step
 (scatter-update, then LLR + top-K on the card). The feedback edge
@@ -31,6 +32,7 @@ from .metrics import (Counters, FEEDBACK_QUEUES, ITEM_LATE_ELEMENTS,
 from .observability import StepTimer, WindowStats, clock
 from .observability.registry import REGISTRY
 from .ops.device_scorer import DeviceScorer
+from .parallel.sharded import ShardedScorer
 from .pipeline import PipelineDriver, StagedWindow
 from .sampling.item_cut import ItemInteractionCut
 from .sampling.reservoir import UserReservoirSampler
@@ -108,6 +110,14 @@ class CooccurrenceJob:
                 defer_results=not cfg.emit_updates,
                 cell_dtype=cfg.resolved_cell_dtype,
                 wire_format=cfg.resolved_wire_format, device=cfg.device)
+        if cfg.backend == "sharded":
+            # One process over --num-shards devices (the visible cards, or
+            # the CPU); num_items == 0 derives the vocab from the data
+            # (growth reshards).
+            return ShardedScorer(
+                cfg.num_items, cfg.top_k, num_shards=cfg.num_shards,
+                counters=self.counters, count_dtype=cfg.count_dtype,
+                device=cfg.device)
         # num_items == 0 derives the vocab from the data (the scorer
         # doubles C on growth); an explicit value is a hard capacity.
         return DeviceScorer(

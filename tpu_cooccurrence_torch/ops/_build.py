@@ -39,11 +39,11 @@ _c_longlong = ctypes.c_longlong
 #: Library name -> {C function: argtypes}. One entry per ``csrc/<name>.cu``.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "score_topk": {
-        # C, count_bytes, row_sums, rows, num_rows, num_items, observed,
-        # top_k, out_vals, out_idx, stream
+        # C, count_bytes, row_sums, rows, num_rows, num_items, row_lo,
+        # local_rows, observed, top_k, out_vals, out_idx, stream
         "score_topk_launch": [_c_void_p, _c_int, _c_void_p, _c_void_p,
-                              _c_int, _c_int, _c_float, _c_int, _c_void_p,
-                              _c_void_p, _c_void_p],
+                              _c_int, _c_int, _c_int, _c_int, _c_float,
+                              _c_int, _c_void_p, _c_void_p, _c_void_p],
         "score_topk_error_string": [_c_int],
     },
     "rect_topk": {

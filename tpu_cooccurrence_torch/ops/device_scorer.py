@@ -87,14 +87,18 @@ def fit_count_dtype(arr, dtype: np.dtype) -> np.ndarray:
 
 
 def _apply_coo(C: torch.Tensor, row_sums: torch.Tensor, src: torch.Tensor,
-               dst: torch.Tensor, delta: torch.Tensor) -> None:
-    """``C[src, dst] += delta`` and ``row_sums[src] += delta``, in place.
+               dst: torch.Tensor, delta: torch.Tensor,
+               row_lo: int = 0) -> None:
+    """``C[src - row_lo, dst] += delta`` and ``row_sums[src] += delta``, in
+    place (``C`` is the block of rows from ``row_lo``: the whole matrix,
+    or one shard's rows).
 
     ``(src, dst)`` cells are distinct (the window fold); ``src`` repeats,
     and ``index_add_`` accumulates those atomically. int16 ``C`` wraps
     like the reference's Java shorts (``ItemRowAggregator.java:16``).
     """
-    C.index_put_((src, dst), delta.to(C.dtype), accumulate=True)
+    local = src - row_lo if row_lo else src
+    C.index_put_((local, dst), delta.to(C.dtype), accumulate=True)
     row_sums.index_add_(0, src, delta)
 
 
@@ -106,6 +110,18 @@ def _grow_dense(C: torch.Tensor, row_sums: torch.Tensor, n: int):
     new_rs = torch.zeros((n,), dtype=row_sums.dtype, device=row_sums.device)
     new_rs[:old] = row_sums
     return new_c, new_rs
+
+
+def upload(arr: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    """``arr`` as a ``dtype`` tensor on ``device``, without a host sync: on
+    the card it is staged in pinned memory and copied non-blocking (the
+    caching host allocator holds the pinned buffer until its copy has run,
+    so ``arr`` may be reused at once)."""
+    LEDGER.up(arr)
+    host = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+    if device.type == "cpu":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 class DeferredResultsTable:
@@ -246,17 +262,6 @@ class DeviceScorer:
         if self._results is not None:
             self._results.resize(n)
 
-    def _to_device(self, arr: np.ndarray, dtype) -> torch.Tensor:
-        """``arr`` as a ``dtype`` tensor on the scorer's device, without a
-        host sync: on the card it is staged in pinned memory and copied
-        non-blocking (the caching host allocator holds the pinned buffer
-        until its copy has run, so ``arr`` may be reused at once)."""
-        LEDGER.up(arr)
-        host = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
-        if self.device.type == "cpu":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
-
     def process_window(self, ts: int, pairs) -> TopKBatch:
         """Apply one window's pair deltas (a :class:`PairDeltaBatch`, or a
         :class:`BasketBatch` from a sampler in basket mode) and rescore
@@ -284,9 +289,9 @@ class DeviceScorer:
         for lo in range(0, len(src), self.max_pairs_per_step):
             hi = lo + self.max_pairs_per_step
             _apply_coo(self.C, self.row_sums,
-                       self._to_device(src[lo:hi], torch.long),
-                       self._to_device(dst[lo:hi], torch.long),
-                       self._to_device(agg_delta[lo:hi], torch.int32))
+                       upload(src[lo:hi], torch.long, self.device),
+                       upload(dst[lo:hi], torch.long, self.device),
+                       upload(agg_delta[lo:hi], torch.int32, self.device))
 
         window_sum = int(pairs.delta.sum())
         self.observed += window_sum
@@ -326,7 +331,7 @@ class DeviceScorer:
                                b.lens[lo:hi], b.skips[lo:hi],
                                b.signs[lo:hi])
             apply_baskets(self.C, self.row_sums,
-                          self._to_device(block, torch.int32))
+                          upload(block, torch.int32, self.device))
 
         # Exact host-side observed, as the chained pairs.delta.sum():
         # each op contributes 2 * sign * pairs.
@@ -348,7 +353,7 @@ class DeviceScorer:
         launched = []
         for lo in range(0, len(rows), self.max_score_rows):
             chunk = rows[lo: lo + self.max_score_rows]
-            rows_t = self._to_device(chunk, torch.int32)
+            rows_t = upload(chunk, torch.int32, self.device)
             vals, idx = score_topk(self.C, self.row_sums, rows_t, observed,
                                    self.top_k)
             if self.defer_results:
@@ -428,13 +433,20 @@ class DeviceScorer:
 
 
 def state_from_jax(st: dict) -> dict:
-    """The reference package's ``DeviceScorer.checkpoint_state()`` (numpy
-    arrays) in the port's layout: the counterpart of converting weights.
+    """The reference package's ``DeviceScorer.checkpoint_state()`` or
+    single-process ``ShardedScorer.checkpoint_state()`` (numpy arrays, the
+    same keys) in the port's layout: the counterpart of converting weights.
 
     ``C`` stays in its count dtype (int32 or int16), contiguous; row sums
     become int32 and ``observed`` an int64 ``[1]`` array. The result feeds
-    :meth:`DeviceScorer.restore_state`.
+    :meth:`DeviceScorer.restore_state` and the sharded scorer's. A
+    multi-host sharded state (one process's ``C_local`` row block) is
+    refused: multi-host runs are not ported.
     """
+    if "C_local" in st:
+        raise ValueError(
+            "state was written by a multi-host sharded run (per-process "
+            "row blocks): multi-host runs are not ported")
     c = np.ascontiguousarray(np.asarray(st["C"]))
     if c.ndim != 2 or c.shape[0] != c.shape[1]:
         raise ValueError(f"C must be square, got {c.shape}")
