@@ -108,11 +108,11 @@ fatal on failure:
    the window-10 checkpoint and restored at D = 1: exactly equal to
    phase 4's run.
 13. Incremental checkpoints, supervised restarts and the oracle: config
-   4's first 400,000 events (20 of its 50 windows; the whole stream
-   until phase 19 needed the time, 600,000 until phase 20) at the JAX
-   defaults (int16 cells, packed uplink), depth 2, a checkpoint every 4
-   windows (five generations; fulls and deltas still alternate),
-   through the file source and the batcher.
+   4's first 300,000 events (15 of its 50 windows; the whole stream
+   until phase 19 needed the time, 600,000 until phase 20, 400,000
+   until phase 22) at the JAX defaults (int16 cells, packed uplink),
+   depth 2, a checkpoint every 3 windows (five generations; fulls and
+   deltas still alternate), through the file source and the batcher.
    (a) ``--checkpoint-incremental`` and full generations in turns
    (incremental, then full; a second incremental turn was cut to make
    room for phase 17), the rect kernel's count reset
@@ -133,8 +133,8 @@ fatal on failure:
    in the first delta of the longest chain: quarantined with a log line,
    the restore falls back to the chain's full base, equal to that
    generation alone. (e) ``--backend oracle`` (float64, host) on config
-   4's first 100,000 events (200,000 until phase 19 needed the time)
-   against the card's sparse run on the same
+   4's first 50,000 events (200,000 until phase 19 needed the time,
+   100,000 until phase 22) against the card's sparse run on the same
    prefix, with ``tests/test_torch_cli.py``'s oracle comparator; the
    oracle's wall.
 14. The native host helpers and sliding windows, on the JAX package's
@@ -160,9 +160,11 @@ fatal on failure:
    host) on the first 50,000 against the card's dense run. (d) Each
    native host step against its numpy plain version in turns (native,
    numpy): config 3's sliding sampling (byte-equal) and
-   its largest window fold; the bench workload chained and config 4
-   sparse, every run exactly equal to phase 4's or phase 7's; the
-   sampling, index ``apply``, fold and scorer seconds and the wall.
+   its largest window fold; the bench workload chained, each run
+   exactly equal to phase 4's, and config 4's first 500,000 events
+   sparse (the whole stream until phase 22 needed the time), the numpy
+   turn exactly equal to the native one; the sampling, index ``apply``,
+   fold and scorer seconds and the wall.
 15. K past 128 (the select-and-sort path), config 4 at the JAX
    package's accelerator defaults, the tiered spill store and
    ``--fixed-score on``. (a) ``score_topk`` (whole ``C`` and a local row
@@ -185,7 +187,7 @@ fatal on failure:
    scores chained) at depths 0 and 2: every window counted chained,
    depth 2's slab, counters and rows (ids included) exactly equal to
    depth 0's; wall, pairs/s, the busy share; cuda against cpu on a
-   100,000-event prefix. (c) The same with ``--spill-threshold-windows
+   50,000-event prefix. (c) The same with ``--spill-threshold-windows
    5 --spill-target-hbm-frac 0``: rows, counters and the checkpoint's
    cell arrays byte-identical to the spill-off run, with rows spilled
    and re-promoted (both counted); slab bytes and heap cells against
@@ -193,8 +195,9 @@ fatal on failure:
    spill, whose saves must keep the spilled rows on the host (the slab's
    heap printed after each save), dropped after its first delta
    generation, restored and finished, exactly equal to the
-   uninterrupted run (a generation every
-   20 windows). (d) The bench
+   uninterrupted run (config 4's first 600,000 events, a generation
+   every 10 windows; the whole stream every 20 until phase 22 needed
+   the time). (d) The bench
    workload at ``-k 1024`` chained and fused and config 4 at ``-k 1024``
    on the defaults, counts reset just before each run and read just
    after: every row with ``min(K, nonzero cells)`` partners, fused equal
@@ -214,7 +217,8 @@ fatal on failure:
    launches as the counts; ``cooc_query_seconds`` p50/p99, publish and
    journal-append seconds a window; then planes off and all of them,
    one round.
-   (b) Config 4 at the defaults with ``--journal`` and
+   (b) Config 4's first 500,000 events (the whole stream until phase 22
+   needed the time) at the defaults with ``--journal`` and
    ``--scorer-breaker-threshold 3``, no fault: no trip, ``rect_topk``
    launched in every scored window, rows equal to breaker off. (c) The
    breaker under ``scorer_breaker`` faults: it opens, scores on the
@@ -346,6 +350,31 @@ fatal on failure:
    two-entry mesh, ids equal wherever a score is untied. (d) Process 0's
    largest launch at 4 workers, replayed on the idle card against its
    plain version (bit for bit) and timed.
+22. Benchmark configs 1, 2 and 5 of ``tpu_cooccurrence/bench/configs.py``
+   through ``cli.main`` in this process, each stream made by the port's
+   own generator and written by its ``write_interactions_csv``, with the
+   configs' flags (the CLI's default ``--backend device``, chained;
+   ``--num-items`` from the data's largest id): config 1, the tiny text
+   times 50, one 1,000,000 ms window, ``--skip-cuts``; config 2,
+   ``ml100k_calibrated()``, 4,000 ms windows, cuts 500/500; config 5,
+   ``instacart_calibrated(20_000)`` (201,638 events), 1,000 ms windows,
+   cuts 500/500, int16 over all 49,688 items (4.94 GB of ``C``), chained
+   and with ``--fused-window on``. Each run's kernel counts set to 0 just
+   before and read just after; its events, pairs, wall, pairs/s,
+   sampling and scorer seconds, launches, largest launch and largest
+   |cell| of ``C`` (whether int16 wrapped: ``C``'s sum against the row
+   sums'); the busy share from a profiled second run (config 1: 20
+   runs, each a few ms). Config 5 fused and chained: stdout
+   byte-identical, state and counters exactly equal. Beside the card's
+   runs, two children of this script (``chip_smoke.py --oracle22
+   SPEC``) run ``--backend oracle --device cpu`` (float64, host) on
+   configs 1 and 2 whole and on config 5's first 20,000 events (its wall
+   grows faster than the events; the first 10,000 too, to show it),
+   which the card also runs: counters and every item's row sum exactly
+   equal, every row within the oracle comparator. ``score_topk`` at
+   each config's largest launch and ``expand_scatter`` at config 5's
+   largest fused block, on the final state, bit-equal to their plain
+   versions and timed beside their bounds.
 
 The last lines: each phase's wall seconds, the card, a
 ``{"kernels": [...]}`` JSON line naming all
@@ -355,8 +384,9 @@ three kernels (``score_topk`` carries its local-block launches of phase
 ``k1024`` and ``k4096``, ``rect_topk`` its per-shard launches of
 phase 18 under ``sharded``, both phase 19's under ``gang`` and phase
 20's chaos gangs' launches by worker under ``supervised``, and
-``rect_topk`` phase 21's under ``autoscale``) and
-``{"ok": true, "device": {...}}``.
+``rect_topk`` phase 21's under ``autoscale``; ``score_topk`` carries
+phase 22's configs under ``configs`` and ``expand_scatter`` config 5's
+fused run under ``config5``) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -739,31 +769,34 @@ def phase_path_parity() -> None:
               f"cpu {t_cpu:.2f} s", flush=True)
 
 
-def _device_profile(run, elapsed: float) -> None:
-    """The main path once more (``run()``, returning its seconds) under
-    ``torch.profiler``: device time by kernel, and its share of the
-    counted run's wall time (the device's busy share; its launches are
-    made after the counts were read)."""
+def _device_profile(run, elapsed: float, reps: int = 1) -> None:
+    """The main path once more (``run()``, returning its seconds; ``reps``
+    times for a run too short for the profiler to catch its device
+    time) under ``torch.profiler``: device time by kernel, and its share
+    of the counted run's wall time (the device's busy share, a run's
+    device time over it; its launches are made after the counts were
+    read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_elapsed = run()
+        prof_elapsed = sum(run() for _ in range(reps)) / reps
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.device_time_total / 1e3
+                e.device_time_total / 1e3 / reps
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
         print("  device busy share: not measured (the profiler saw no "
               "device time)", flush=True)
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    runs = f"{reps} profiled runs, a run" if reps > 1 else "profiled run"
     print(f"  device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / (elapsed * 1e3):.2f}% of the counted run's "
-          f"{elapsed:.3f} s (profiled run {prof_elapsed:.3f} s)", flush=True)
+          f"{elapsed:.3f} s ({runs} {prof_elapsed:.3f} s)", flush=True)
     for name, ms in top:
         print(f"    {ms:10.3f} ms  {name[:90]}", flush=True)
 
@@ -2168,17 +2201,12 @@ def _config4_cells(card, sparse_job, parity: Parity) -> dict:
     users, items, ts = _config4_stream()
     recs = {cell: _Recorder(getattr(torch, cell)) for cell, _ in NARROW}
     runs = {}
-    # One repeat, of the defaults, holds a second run equal to the first
-    # (a full second round was cut to keep the script inside its time).
     for cell, fmt in (("int16", "packed"), ("int16", "raw"),
-                      ("int32", "raw"), ("int8", "packed"),
-                      ("int16", "packed")):
-        first = (cell, fmt) not in runs
+                      ("int32", "raw"), ("int8", "packed")):
         cfg = Config(**{**CONFIG4_JOB, "cell_dtype": cell,
                         "wire_format": fmt}, device="cuda")
         job, wall, counts, ledger = _sparse_run(
-            cfg, users, items, ts,
-            recs[cell] if fmt == "packed" and first else None)
+            cfg, users, items, ts, recs[cell] if fmt == "packed" else None)
         rows, swapped = _sparse_equal(job, sparse_job,
                                       f"config 4 {cell} {fmt}",
                                       ties_may_swap=cell != "int32")
@@ -2189,11 +2217,7 @@ def _config4_cells(card, sparse_job, parity: Parity) -> dict:
               f"scores", flush=True)
         if cell == "int8" and job.scorer.promoted_rows <= 0:
             _fail("config 4 at int8: no row promoted")
-        if first:
-            runs[(cell, fmt)] = job
-        else:
-            _sparse_equal(job, runs[(cell, fmt)], f"config 4 {cell} {fmt} "
-                          f"again")
+        runs[(cell, fmt)] = job
         del job
     _sparse_equal(runs[("int16", "raw")], runs[("int16", "packed")],
                   "config 4 int16 raw against packed")
@@ -2590,15 +2614,15 @@ def phase_sharded(card: str, parity: Parity, dense_job) -> dict:
 
 #: Phase 13's checkpoint cadence (windows) and the generation after
 #: whose commit the supervised run's first attempt is killed.
-#: Phase 13 runs config 4's first PREFIX13 events (20 of its 50
+#: Phase 13 runs config 4's first PREFIX13 events (15 of its 50
 #: windows; cut from the whole stream and a checkpoint every 10 windows
-#: to make room for phases 19 and 20), a checkpoint every EVERY windows:
-#: five generations, as before the cuts.
-PREFIX13 = 400_000
-EVERY = 4
+#: to make room for phases 19, 20 and 22), a checkpoint every EVERY
+#: windows: five generations, as before the cuts.
+PREFIX13 = 300_000
+EVERY = 3
 KILL_GEN = 3
 #: Events of the config-4 prefix the oracle runs (host only, float64).
-ORACLE_PREFIX = 100_000
+ORACLE_PREFIX = 50_000
 
 
 def _ckpt_cfg(directory, incremental):
@@ -3360,10 +3384,15 @@ def _config3_windows(users, items, ts):
     return [(u, i) for _, u, i in engine.fire_ready(final=True)]
 
 
-def _native_vs_numpy(card, users, items, ts, dense_job, sparse_job):
+#: Config 4's first events that (d) runs natively and on numpy.
+NATIVE_EVENTS14 = 500_000
+
+
+def _native_vs_numpy(card, users, items, ts, dense_job):
     """(d) Each native host step against its plain version in alternating
     turns, in this process: config 3's sliding sampling and its largest
-    fold, the bench workload's chained run and config 4's sparse run."""
+    fold, the bench workload's chained run and a sparse run of config
+    4's first NATIVE_EVENTS14 events."""
     import torch
 
     from tpu_cooccurrence_torch import native
@@ -3418,13 +3447,21 @@ def _native_vs_numpy(card, users, items, ts, dense_job, sparse_job):
         lambda: _run_job("cuda", "int32", *bench, num_items=20_000),
         lambda job, what: f"C, counters and "
         f"{_dense_equal(job, dense_job, what)} rows exactly equal to phase 4")
-    c4 = _config4_stream()
+    c4 = tuple(a[:NATIVE_EVENTS14] for a in _config4_stream())
+    native: dict = {}
+
+    def c4_check(job, what):
+        if "job" not in native:
+            native["job"] = job
+            return "the numpy turn's reference"
+        return (f"slab, counters and "
+                f"{_sparse_equal(job, native['job'], what)[0]} rows (ids "
+                f"included) exactly equal to the native turn")
+
     c4_walls = _ab_turns(
-        card, "config 4, sparse int32 raw",
-        lambda: _run_sparse_job("cuda", *c4),
-        lambda job, what: f"slab, counters and "
-        f"{_sparse_equal(job, sparse_job, what)[0]} rows (ids included) "
-        f"exactly equal to phase 7")
+        card, f"config 4's first {NATIVE_EVENTS14} events, sparse int32 "
+        f"raw", lambda: _run_sparse_job("cuda", *c4), c4_check)
+    native.clear()
     torch.cuda.empty_cache()
     return dict(sampling=secs, fold=fold_s, bench=bench_walls,
                 config4=c4_walls)
@@ -3469,8 +3506,8 @@ def _config3_resume(card, ref, users, items, ts):
     return times
 
 
-def phase_native_and_sliding(card: str, parity: Parity, dense_job,
-                             sparse_job) -> dict:
+def phase_native_and_sliding(card: str, parity: Parity,
+                             dense_job) -> dict:
     """Returns config 3's score-kernel entry (launches, times, bound)."""
     import torch
 
@@ -3485,7 +3522,7 @@ def phase_native_and_sliding(card: str, parity: Parity, dense_job,
     del job
     torch.cuda.empty_cache()
     _config3_prefix_parity(card, users, items, ts)
-    _native_vs_numpy(card, users, items, ts, dense_job, sparse_job)
+    _native_vs_numpy(card, users, items, ts, dense_job)
     print(f"  phase 14 done in {time.monotonic() - t0:.1f} s", flush=True)
     return run
 
@@ -3498,9 +3535,13 @@ LARGE_K = (129, 256, 1024, 1025, 4096)
 #: The K values timed against K = 10 and run end to end in (d).
 TIMED_K = (1024, 4096)
 #: Events of config 4's prefix run on both devices and by the CLI.
-PREFIX15 = 100_000
+PREFIX15 = 50_000
 #: The tiered store's flags of phase 15(c).
 SPILL = dict(spill_threshold_windows=5, spill_target_hbm_frac=0.0)
+#: Config 4's first events, and the generation cadence (windows), of
+#: (c)'s incremental run under spill.
+SPILL_EVENTS15 = 600_000
+SPILL_EVERY15 = 10
 #: Config 3's vocabulary: the width of (a)'s fully dense rows.
 WIDE_I = 59_047
 
@@ -3835,8 +3876,9 @@ def _phase15_spill(card, runs) -> None:
           f"{counts}; counters, {rows} rows and the checkpoint's cell "
           f"arrays byte-identical to spill-off", flush=True)
     del job
+    users, items, ts = (a[:SPILL_EVENTS15] for a in (users, items, ts))
     with tempfile.TemporaryDirectory() as tmp:
-        every = 20
+        every = SPILL_EVERY15
         kw = dict(checkpoint_every_windows=every,
                   checkpoint_incremental=True, checkpoint_retain=50, **SPILL)
         ref, ref_wall, _c, _l = _sparse_run(
@@ -4096,6 +4138,8 @@ BREAKER16 = ["--scorer-breaker-threshold", "1",
              "--inject-fault", "scorer_breaker:3:exception",
              "--inject-fault", "scorer_breaker:5:exception"]
 BREAKER16_HOST_WINDOWS = [3, 4, 6, 7]
+#: Config 4's first events that (b) runs with the breaker armed and off.
+BREAKER_EVENTS16 = 500_000
 
 
 def _small16_csv(tmp):
@@ -4378,14 +4422,15 @@ def _phase16_bench(card, tmp):
 
 
 def _phase16_config4_breaker(card):
-    """(b) Config 4 at the defaults with --journal and the breaker armed
-    (threshold 3), no fault: no trip, every scored window launched on the
-    card, rows equal to the breaker-off run."""
+    """(b) Config 4's first BREAKER_EVENTS16 events at the defaults with
+    --journal and the breaker armed (threshold 3), no fault: no trip,
+    every scored window launched on the card, rows equal to the
+    breaker-off run."""
     import tempfile
 
     from tpu_cooccurrence_torch.state import sparse_scorer as ss
 
-    stream = _config4_stream()
+    stream = tuple(a[:BREAKER_EVENTS16] for a in _config4_stream())
     with tempfile.TemporaryDirectory() as tmp:
         journal = os.path.join(tmp, "c4.jsonl")
         launched = set()
@@ -4423,7 +4468,8 @@ def _phase16_config4_breaker(card):
               f"scored {len(scored)} (not the same windows)")
     ref, wall_off, counts_off, _ = _sparse_run(_config4_cfg(), *stream)
     _sparse_equal(job, ref, "config 4, breaker armed vs off")
-    print(f"  {card}: (b) config 4 at the defaults, --journal and "
+    print(f"  {card}: (b) config 4's first {BREAKER_EVENTS16} events at "
+          f"the defaults, --journal and "
           f"--scorer-breaker-threshold 3, no fault: 0 trips, every record "
           f"closed; rect_topk launched in each of the {len(scored)} "
           f"scored windows ({counts['rect_topk']} launches, "
@@ -6171,6 +6217,314 @@ def phase_autoscale(card: str, refs: dict) -> dict:
     return {"gangs": gangs, "four": four}
 
 
+# -- phase 22: benchmark configs 1, 2 and 5 through the CLI -------------
+
+
+#: Config 1's text (``tpu_cooccurrence/bench/configs.py:33-40``).
+TINY_TEXT22 = """the quick brown fox jumps over the lazy dog
+pack my box with five dozen liquor jugs
+how vexingly quick daft zebras jump
+the five boxing wizards jump quickly
+sphinx of black quartz judge my vow
+the quick onyx goblin jumps over the lazy dwarf
+"""
+#: Config 5's baskets: the JAX bench's ``BENCH_BASKETS`` default.
+BASKETS22 = 20_000
+#: Config 5's first events held to the float64 oracle (its wall grows
+#: faster than the events: each window rescores whole rows in Python),
+#: and half of them, to show the growth.
+ORACLE_EVENTS22 = 20_000
+CUTS22 = ["-ic", "500", "-uc", "500"]
+
+
+def _streams22():
+    """{name: (stream, CLI flags)} of configs 1, 2 and 5, generated by the
+    port's own generators, with the flags of
+    ``tpu_cooccurrence/bench/configs.py`` (``--num-items`` from the
+    data's largest id, as there)."""
+    from tpu_cooccurrence_torch.io.synthetic import (
+        instacart_calibrated, ml100k_calibrated, word_cooccurrence_stream)
+
+    def vocab(stream):
+        return ["--num-items", str(int(stream[1].max()) + 1)]
+
+    c1 = word_cooccurrence_stream(TINY_TEXT22 * 50)
+    c2 = ml100k_calibrated()
+    c5 = instacart_calibrated(BASKETS22)
+    return {
+        "config1": (c1, ["-ws", "1000000", "--skip-cuts", "-s", "1",
+                         *vocab(c1)]),
+        "config2": (c2, ["-ws", "4000", "-s", "2", *CUTS22, *vocab(c2)]),
+        "config5": (c5, ["-ws", "1000", "-s", "5", *CUTS22, "--count-dtype",
+                         "int16", *vocab(c5)]),
+    }
+
+
+def _oracle_child22(spec_path: str) -> int:
+    """Phase 22's reference, in a child of this script: the port's CLI
+    with ``--backend oracle --device cpu`` (float64, on the host) on each
+    CSV the spec names; its stdout, counters, row sums by item and wall
+    go to ``<csv>.oracle.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    for path, argv in spec:
+        rc, out, wall, job, _ = _cli_job_run(
+            ["-i", path, *argv, "--backend", "oracle", "--device", "cpu"])
+        to_ext = job.item_vocab.to_external
+        with open(path + ".oracle.json", "w") as f:
+            json.dump({"rc": rc, "out": out, "wall": wall,
+                       "counters": job.counters.as_dict(),
+                       "row_sums": {str(to_ext(i)): s for i, s in
+                                    job.scorer.global_row_sums.items()
+                                    if s}}, f)
+    return 0
+
+
+class _Largest22:
+    """While a run lasts: the rows of its largest ``score_topk`` launch
+    (a copy) and every host block ``pack_block`` packs (references; the
+    largest is picked after the run, off its clock)."""
+
+    def __enter__(self):
+        from tpu_cooccurrence_torch.ops import device_scorer as ds
+
+        self._ds, self._score, self._pack = ds, ds.score_topk, ds.pack_block
+        self.rows, self.blocks = None, []
+
+        def score(C, rs, rows, observed, k):
+            if self.rows is None or rows.shape[0] > self.rows.shape[0]:
+                self.rows = rows.clone()
+            return self._score(C, rs, rows, observed, k)
+
+        def pack(*args):
+            block = self._pack(*args)
+            self.blocks.append(block)
+            return block
+
+        ds.score_topk, ds.pack_block = score, pack
+        return self
+
+    def __exit__(self, *exc):
+        self._ds.score_topk, self._ds.pack_block = self._score, self._pack
+        return False
+
+
+def _card_run22(card, what, path, argv, events, fused=False):
+    """One counted CLI run of a config on the card (the path's kernel
+    counts set to 0 just before and read just after); prints its row.
+    Returns the run's record."""
+    import torch
+
+    from tpu_cooccurrence_torch.metrics import (OBSERVED_COOCCURRENCES,
+                                                ROW_SUM_PROCESS_WINDOW)
+
+    full = ["-i", path, *argv] + (["--fused-window", "on"] if fused else [])
+    with _Largest22() as seen:
+        (rc, out, wall, job, ingest), counts = _counted(
+            "fused" if fused else "chained", lambda: _cli_job_run(full))
+    if rc != 0 or not out:
+        _fail(f"phase 22 {what}: exit {rc}, {len(out)} bytes of stdout")
+    sc = job.scorer
+    pairs = job.counters.get(OBSERVED_COOCCURRENCES)
+    summed = job.counters.get(ROW_SUM_PROCESS_WINDOW)
+    if not (int(sc.row_sums.sum(dtype=torch.int64)) == sc.observed
+            == summed > 0):
+        _fail(f"phase 22 {what}: row sums, observed {sc.observed} and the "
+              f"row-sum counter {summed} disagree")
+    largest_cell = max(int(sc.C.max()), -int(sc.C.min()))
+    # A cell that wrapped moved C's sum by a multiple of 2^16 off the row
+    # sums' (the int16 counts wrap as the reference's Java shorts do).
+    wrapped = int(sc.C.sum(dtype=torch.int64)) != summed
+    if wrapped and sc.C.dtype != torch.int16:
+        _fail(f"phase 22 {what}: C.sum() != the row sums' sum")
+    t = job.step_timer
+    print(f"  {card}: {what}: {events} events, {pairs} pairs, "
+          f"{job.windows_fired} windows; wall {wall:.4f} s, "
+          f"{pairs / wall:.1f} pairs/s, sampling "
+          f"{t.total_sample_seconds:.4f} s, scorer "
+          f"{t.total_score_seconds:.4f} s, ingest {ingest:.4f} s (host "
+          f"clock, CLI in this process); launches {counts}, the largest "
+          f"score launch {seen.rows.shape[0]} rows; C "
+          f"{tuple(sc.C.shape)} {str(sc.C.dtype).split('.')[-1]}, largest "
+          f"|cell| {largest_cell} ("
+          + ("wrapped: C's sum is off the row sums'" if wrapped else
+             "no wraparound: C sums to the row sums' total") + ")",
+          flush=True)
+    block = max(seen.blocks, key=_valid_pairs) if seen.blocks else None
+    return dict(out=out, wall=wall, job=job, counts=counts, rows=seen.rows,
+                block=block, argv=full)
+
+
+def _profiled22(argv):
+    """The CLI run again for the profiler, the card drained before it
+    stops; returns the run's wall."""
+    import torch
+
+    wall = _cli_run(argv)[2]
+    torch.cuda.synchronize()
+    return wall
+
+
+def _oracle_gate22(card, what, run, path):
+    """The card's run against the oracle child's on the same CSV: the
+    counters and every item's row sum exactly equal, every emitted row
+    within the oracle comparator."""
+    with open(path + ".oracle.json") as f:
+        ref = json.load(f)
+    if ref["rc"] != 0:
+        _fail(f"phase 22 {what}: the oracle exited {ref['rc']}")
+    job = run["job"]
+    if job.counters.as_dict() != ref["counters"]:
+        _fail(f"phase 22 {what}: counters {job.counters.as_dict()} vs the "
+              f"oracle's {ref['counters']}")
+    sums = job.scorer.row_sums.cpu().numpy()
+    dense = np.flatnonzero(sums)
+    mine = {str(job.item_vocab.to_external(int(i))): int(sums[i])
+            for i in dense}
+    if mine != ref["row_sums"]:
+        _fail(f"phase 22 {what}: row sums differ from the oracle's on "
+              f"{len(set(mine.items()) ^ set(ref['row_sums'].items()))} "
+              f"items")
+    rows, held = _latest_close(_parse_rows(ref["out"]),
+                               _parse_rows(run["out"]))
+    print(f"  {card}: {what} against --backend oracle (float64, host, in a "
+          f"child of this script): counters and {len(mine)} row sums "
+          f"exactly equal; {rows} rows within the oracle comparator (rtol "
+          f"1e-4, atol 1e-3; ids held on the {held} rows whose in-row gaps "
+          f"all exceed 1e-2); oracle wall {ref['wall']:.4f} s", flush=True)
+    return ref["wall"]
+
+
+def _time_score22(parity: Parity, what, run) -> dict:
+    """``score_topk`` at the rows of the run's largest launch, on its
+    final state: bit-equal to the plain version, then timed."""
+    sc = run["job"].scorer
+    rows = run["rows"]
+    observed = float(np.float32(sc.observed))
+    dtype = str(sc.C.dtype).split(".")[-1]
+    parity.check(f"{what}_largest_launch_final_state", sc.C, sc.row_sums,
+                 rows, observed, sc.top_k, exact=True)
+    m = _measure(f"{what}_largest_launch_S{rows.shape[0]}_I{sc.num_items}_"
+                 f"{dtype}", sc.C, sc.row_sums, rows, observed, sc.top_k)
+    return {"launches": run["counts"]["score_topk"], **m}
+
+
+def phase_configs(card: str, parity: Parity,
+                  expand_parity: ExpandParity) -> dict:
+    import tempfile
+
+    import torch
+
+    print("phase 22: benchmark configs 1, 2 and 5 through the CLI on the "
+          "card, held to --backend oracle", flush=True)
+    t0 = time.monotonic()
+    from tpu_cooccurrence_torch.io.synthetic import write_interactions_csv
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        configs, paths = _streams22(), {}
+        for name, (stream, _) in configs.items():
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            write_interactions_csv(paths[name], *stream)
+        c5_stream, c5_argv = configs["config5"]
+        heads = {}
+        for n in (ORACLE_EVENTS22 // 2, ORACLE_EVENTS22):
+            heads[n] = os.path.join(tmp, f"config5-head{n}.csv")
+            write_interactions_csv(heads[n], *(a[:n] for a in c5_stream))
+        # The float64 oracle runs beside the card's runs, in two children
+        # (configs 1 and 2; config 5's heads) on two other cores.
+        children = []
+        for i, spec in enumerate((
+                [(paths[n], configs[n][1]) for n in ("config1", "config2")],
+                [(heads[n], c5_argv) for n in sorted(heads)])):
+            path = os.path.join(tmp, f"oracle{i}.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            log = open(os.path.join(tmp, f"oracle{i}.log"), "w+")
+            children.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--oracle22",
+                 path], stdout=subprocess.DEVNULL, stderr=log), log))
+        try:
+            runs = {}
+            for name, reps in (("config1", 20), ("config2", 1)):
+                stream, argv = configs[name]
+                runs[name] = _card_run22(card, name, paths[name], argv,
+                                         len(stream[0]))
+                # Config 1 runs in a few ms: profiled over 20 runs.
+                _device_profile(lambda: _profiled22(runs[name]["argv"]),
+                                runs[name]["wall"], reps)
+            n5 = len(c5_stream[0])
+            chained = _card_run22(card, "config5 chained", paths["config5"],
+                                  c5_argv, n5)
+            _device_profile(lambda: _profiled22(chained["argv"]),
+                            chained["wall"])
+            fused = _card_run22(card, "config5 --fused-window on",
+                                paths["config5"], c5_argv, n5, fused=True)
+            _device_profile(lambda: _profiled22(fused["argv"]),
+                            fused["wall"])
+            if fused["out"] != chained["out"]:
+                _fail("phase 22 config5: fused stdout differs from chained")
+            _dense_equal(fused["job"], chained["job"],
+                         "phase 22 config5 fused vs chained")
+            print(f"  {card}: config5 fused and chained: stdout "
+                  f"byte-identical ({chained['out'].count(chr(10))} rows), "
+                  f"counters, C, row sums and observed exactly equal",
+                  flush=True)
+            head = _card_run22(card, f"config5's first {ORACLE_EVENTS22} "
+                               f"events chained", heads[ORACLE_EVENTS22],
+                               c5_argv, ORACLE_EVENTS22)
+            del chained["job"]
+            torch.cuda.empty_cache()
+            print(f"  {card}: the kernels at the largest launches' shapes, "
+                  f"on each run's final state (the oracle children beside)",
+                  flush=True)
+            for name in ("config1", "config2"):
+                out[name] = _time_score22(parity, name, runs[name])
+            # Fused and chained states are equal: the chained run's
+            # largest score launch on the fused run's final state.
+            out["config5"] = _time_score22(parity, "config5",
+                                           {**chained, "job": fused["job"]})
+            sc, block = fused["job"].scorer, fused["block"]
+            expand_parity.compare(
+                f"config5_largest_launch_N{block.shape[0]}_W"
+                f"{block.shape[1] - 4}", sc.C, sc.row_sums,
+                torch.from_numpy(block).to("cuda"), reps=5)
+            out["config5_expand"] = {
+                "launches": fused["counts"]["expand"],
+                **_measure_expand(f"config5_largest_launch_N"
+                                  f"{block.shape[0]}", sc.C, sc.row_sums,
+                                  block)}
+            del fused["job"], sc
+            torch.cuda.empty_cache()
+            for child, log in children:
+                try:
+                    child.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    _fail("phase 22: an oracle child did not end in 600 s")
+                if child.returncode != 0:
+                    log.seek(0)
+                    _fail(f"phase 22: an oracle child exited "
+                          f"{child.returncode}: {log.read()[-2000:]}")
+            for name in ("config1", "config2"):
+                _oracle_gate22(card, name, runs[name], paths[name])
+            _oracle_gate22(card, f"config5's first {ORACLE_EVENTS22} "
+                           f"events", head, heads[ORACLE_EVENTS22])
+            with open(heads[ORACLE_EVENTS22 // 2] + ".oracle.json") as f:
+                half = json.load(f)["wall"]
+            print(f"  {card}: the oracle on config5's first "
+                  f"{ORACLE_EVENTS22 // 2} events took {half:.4f} s (the "
+                  f"whole stream is not run: its wall grows faster than "
+                  f"the events)", flush=True)
+        finally:
+            for child, log in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+                log.close()
+    print(f"  phase 22 done in {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def _gang_entry(results, name) -> dict:
     """Kernel ``name``'s phase-19 row: its launches by process, and
     process 0's largest launch, replayed and timed by this script once
@@ -6249,7 +6603,7 @@ def main() -> int:
                         main_run["job"])
     timed(13, phase_incremental_and_supervised, card)
     sliding_run = timed(14, phase_native_and_sliding, card, parity,
-                        main_run["job"], sparse_run["job"])
+                        main_run["job"])
     large_k = timed(15, phase_large_k_fused_spill, card, parity,
                     rect_parity, local_parity, main_run, sparse_run,
                     sharded_run.pop("block"))
@@ -6261,6 +6615,7 @@ def main() -> int:
     refs = gang_run.pop("ref")
     supervised = timed(20, phase_supervised, card, refs)
     autoscaled = timed(21, phase_autoscale, card, refs)
+    configs = timed(22, phase_configs, card, parity, expand_parity)
     print(f"phase seconds: {took}; all {sum(took.values()):.1f} s",
           flush=True)
 
@@ -6322,12 +6677,19 @@ def main() -> int:
                           "max_abs_err": parity.max_abs_err}
         rect[f"k{k}"] = {**large_k["rect"][k],
                          "max_abs_err": rect_parity.max_abs_err}
+    # Phase 22's configs 1, 2 and 5 through the CLI: each run's launches,
+    # and the kernel timed at the rows of its largest launch (config 5:
+    # int16 over 49,688 columns; expand_scatter at the fused run's
+    # largest block).
+    score["configs"] = {name: {"library_ms": None, **configs[name],
+                               "max_abs_err": parity.max_abs_err}
+                        for name in ("config1", "config2", "config5")}
+    expand = _kernel_entry("expand_scatter", "pallas_score.py:442",
+                           expand_parity, fused_run)
+    expand["config5"] = {**configs["config5_expand"],
+                         "max_abs_err": expand_parity.max_abs_err}
     print(card, flush=True)
-    print(json.dumps({"kernels": [
-        score, rect,
-        _kernel_entry("expand_scatter", "pallas_score.py:442",
-                      expand_parity, fused_run),
-    ]}), flush=True)
+    print(json.dumps({"kernels": [score, rect, expand]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6341,6 +6703,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--autoscale-supervisor"]:
         # Phase 21's supervisor, started by phase_autoscale.
         sys.exit(_autoscale_supervisor(sys.argv[2:]))
+    if sys.argv[1:2] == ["--oracle22"]:
+        # Phase 22's float64 reference, started by phase_configs.
+        sys.exit(_oracle_child22(sys.argv[2]))
     if sys.argv[1:2] == ["--autoscale-worker"]:
         # One worker of phase 21, spawned by that supervisor.
         sys.exit(_autoscale_worker(sys.argv[2:]))

@@ -1,12 +1,16 @@
-"""Synthetic interaction streams (copy of ``tpu_cooccurrence/io/synthetic.py``,
-trimmed to the Zipfian basket generator of the bench workload and the
-calibrated MovieLens-25M stand-in of benchmark config 3). Every generator
-returns the same arrays as the reference package's for the same
-arguments."""
+"""Synthetic and public-dataset interaction streams (copy of
+``tpu_cooccurrence/io/synthetic.py``): the Zipfian basket generator of
+the bench workload and config 4, the calibrated MovieLens-25M,
+MovieLens-100K and Instacart stand-ins of benchmark configs 3, 2 and 5,
+the word stream of config 1, the MovieLens and Instacart file readers and
+the ``user,item,ts`` CSV writer. Every function returns (or writes) the
+same arrays (bytes) as the reference package's for the same arguments,
+and draws from its generator in the same order."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -136,6 +140,15 @@ ML25M_CALIBRATION = dict(
 )
 ML25M_EVENTS = 25_000_095
 
+ML100K_CALIBRATION = dict(
+    # 100,000 ratings, 943 users, 1,682 movies; top-3 = 583/509/508
+    # (Star Wars / Contact / Fargo); >=20 ratings per user.
+    n_users=943, n_items=1_682,
+    item_s=0.5444, item_q=5.949,
+    user_mu=4.1744, user_sigma=0.9373, user_lo=20.0, user_hi=737.0,
+)
+ML100K_EVENTS = 100_000
+
 
 def ml25m_calibrated(n_events: int = ML25M_EVENTS, seed: int = 25,
                      events_per_ms: int = 50):
@@ -143,3 +156,127 @@ def ml25m_calibrated(n_events: int = ML25M_EVENTS, seed: int = 25,
     return calibrated_interactions(n_events, seed=seed,
                                    events_per_ms=events_per_ms,
                                    **ML25M_CALIBRATION)
+
+
+def ml100k_calibrated(n_events: int = ML100K_EVENTS, seed: int = 100,
+                      events_per_ms: int = 5):
+    """ML-100K-shaped stream (see ML100K_CALIBRATION)."""
+    return calibrated_interactions(n_events, seed=seed,
+                                   events_per_ms=events_per_ms,
+                                   **ML100K_CALIBRATION)
+
+
+#: Instacart: 3,421,083 orders, 206,209 users (4..100 orders each,
+#: mean 16.6), 49,688 products over 33,819,106 order-products
+#: (prior+train); top-3 products Banana 491,291 / Bag of Organic
+#: Bananas 394,930 / Organic Strawberries 275,577; basket mean ~10.1,
+#: median ~8.
+INSTACART_CALIBRATION = dict(
+    n_orders=3_421_083,
+    n_products=49_688, item_s=0.7845, item_q=0.836,
+    orders_mu=2.3026, orders_sigma=0.9079, orders_lo=4.0, orders_hi=100.0,
+    basket_mu=2.0794, basket_sigma=0.6822, basket_lo=1.0, basket_hi=145.0,
+    n_users=206_209,
+)
+
+
+def instacart_calibrated(n_baskets: int, seed: int = 55,
+                         ms_per_basket: int = 10):
+    """Instacart-shaped basket stream: per-user order counts and basket
+    sizes from clipped log-normals, product popularity Zipf-Mandelbrot
+    (all fitted to the published marginals above). Each basket is one
+    (user, timestamp) group, like the real order->products join."""
+    c = INSTACART_CALIBRATION
+    rng = np.random.default_rng(seed)
+    # Scale the user population with the basket budget so orders/user
+    # keeps its real mean at any size; full size = exactly all users.
+    n_users = max(1, min(c["n_users"], int(round(
+        n_baskets * c["n_users"] / c["n_orders"]))))
+    orders = truncated_lognormal_activity(
+        n_users, c["orders_mu"], c["orders_sigma"],
+        c["orders_lo"], c["orders_hi"], rng)
+    basket_users = np.repeat(
+        np.arange(n_users, dtype=np.int64),
+        _exact_multiplicities(orders, n_baskets))
+    rng.shuffle(basket_users)
+    sizes = np.rint(truncated_lognormal_activity(
+        n_baskets, c["basket_mu"], c["basket_sigma"],
+        c["basket_lo"], c["basket_hi"], rng)).astype(np.int64)
+    users = np.repeat(basket_users, sizes)
+    ts = np.repeat(np.arange(n_baskets, dtype=np.int64) * ms_per_basket,
+                   sizes)
+    items = sample_items(
+        zipf_mandelbrot_weights(c["n_products"], c["item_s"], c["item_q"]),
+        int(sizes.sum()), rng)
+    return users, items, ts
+
+
+def word_cooccurrence_stream(
+    text: str,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batch word co-occurrence on a text: each line is a 'user' (basket),
+    each token an 'item', timestamps = line index (benchmark config 1)."""
+    vocab = {}
+    users, items, tss = [], [], []
+    for line_no, line in enumerate(text.splitlines()):
+        for tok in line.split():
+            idx = vocab.setdefault(tok, len(vocab))
+            users.append(line_no)
+            items.append(idx)
+            tss.append(line_no)
+    return (
+        np.asarray(users, dtype=np.int64),
+        np.asarray(items, dtype=np.int64),
+        np.asarray(tss, dtype=np.int64),
+    )
+
+
+def movielens_interactions(
+    ratings_csv: str,
+    min_rating: float = 0.0,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Adapter for MovieLens ``ratings.csv`` (userId,movieId,rating,timestamp).
+
+    Yields sorted-by-timestamp chunks as interaction batches (benchmark
+    configs 2 and 3). Handles both the 100K tab format (u.data) and the
+    25M CSV format.
+    """
+    is_udata = ratings_csv.endswith(".data")
+    delim = "\t" if is_udata else ","
+    skip = 0 if is_udata else 1
+    data = np.loadtxt(ratings_csv, delimiter=delim, skiprows=skip,
+                      dtype=np.float64)
+    users = data[:, 0].astype(np.int64)
+    items = data[:, 1].astype(np.int64)
+    ratings = data[:, 2]
+    ts = data[:, 3].astype(np.int64) * 1000  # seconds -> ms
+    keep = ratings >= min_rating
+    users, items, ts = users[keep], items[keep], ts[keep]
+    order = np.argsort(ts, kind="stable")
+    yield users[order], items[order], ts[order]
+
+
+def instacart_interactions(
+    orders_csv: str,
+    order_products_csv: str,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Adapter for Instacart order-product baskets (benchmark config 5):
+    user = order's user_id, item = product_id, ts = order_number ordering."""
+    orders = np.loadtxt(orders_csv, delimiter=",", skiprows=1,
+                        usecols=(0, 1, 3), dtype=np.int64)  # order_id,user_id,order_number
+    order_user = {int(o): int(u) for o, u, _n in orders}
+    order_ts = {int(o): int(n) for o, _u, n in orders}
+    op = np.loadtxt(order_products_csv, delimiter=",", skiprows=1,
+                    usecols=(0, 1), dtype=np.int64)  # order_id,product_id
+    users = np.asarray([order_user[int(o)] for o in op[:, 0]], dtype=np.int64)
+    ts = np.asarray([order_ts[int(o)] for o in op[:, 0]], dtype=np.int64)
+    items = op[:, 1]
+    order = np.argsort(ts, kind="stable")
+    yield users[order], items[order], ts[order]
+
+
+def write_interactions_csv(path: str, users, items, timestamps) -> None:
+    """Write interactions in the reference's input format ``user,item,ts``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arr = np.stack([users, items, timestamps], axis=1)
+    np.savetxt(path, arr, fmt="%d", delimiter=",")
